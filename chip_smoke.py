@@ -7,20 +7,28 @@ script exits non-zero and prints no result):
 
   env        nvidia-smi's card name and power limit, torch and CUDA versions
   build      compile the port's CUDA kernels from src/repro_torch/kernels/csrc
-  kernels    each kernel against its plain PyTorch version on the card, at
-             the main path's shapes; median times, bounds, library yardsticks
+  kernels    gather_l2, gather_l2_q8 and l2_distance against their plain
+             PyTorch versions on the card, at the main path's shapes;
+             median times, bounds, library yardsticks
   main_path  SIFT1M's shape (d=128, f32, default HNSWConfig) with state
              allocated at cap = 1,048,576 on the card: build -> search (LSM
-             probe and snapshot routes) -> insert_batch 4 x 1,024 ->
-             delete_batch 1% -> maintain("consolidate") -> search, with
-             recall@10 against brute_force_knn; kernel launch counts are
-             zeroed before and read after every step
+             probe, snapshot and fused routes) -> insert_batch 4 x 1,024 ->
+             delete_batch 1% -> maintain("consolidate") -> search ->
+             maintain("tier") -> tiered search (snapshot and fused routes),
+             with recall@10 against brute_force_knn; kernel launch counts
+             are zeroed before and read after every step; the fused route's
+             ids equal the snapshot route's at every step
+  beam       the beam megakernel over the built index's snapshot, for
+             B in {1, 4} and rho in {1.0, 0.5}: bitwise against the loop
+             route on the card, ids against its plain version; times
   parity     a small integer-valued run, card against the plain route on
-             the CPU, search ids bitwise at every step; the full-size
-             queries re-run with the kernels swapped for their plain
-             versions, and on the CPU from a copy of the final state
-  profile    torch.profiler over one search and one insert_batch: the
-             device's busy share and the kernels that take its time
+             the CPU, search ids bitwise at every step, on the loop,
+             fused and tiered routes; the full-size queries re-run with
+             the kernels swapped for their plain versions, and on the CPU
+             from a copy of the final state
+  profile    torch.profiler over one search on each route and one
+             insert_batch: the device's busy share and the kernels that
+             take its time
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  It needs no network and one card, and
@@ -31,6 +39,7 @@ beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +56,7 @@ N_BASE = 131_072              # rows built (SIFT1M has 1,000,000)
 N_QUERIES, K = 1000, 10
 INSERT_BATCHES, INSERT_WIDTH = 4, 1024
 DELETE_FRACTION = 0.01
+TIER_POLICY = dict(hot_frac=0.25, max_demote=CAP, max_promote=64)
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM rate
 # and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -84,12 +94,16 @@ def median_ms(fn, args_list, warmup: int = 3) -> float:
 
 
 def phase_kernels(dev):
-    """Each kernel against its plain version on the card."""
+    """The gather and dense-distance kernels against their plain versions
+    on the card (the beam kernel needs a built index: `phase_beam`)."""
     import torch
 
     from repro_torch.data.synth import make_clustered_vectors
-    from repro_torch.kernels.gather_l2.ops import gather_l2
-    from repro_torch.kernels.gather_l2.ref import gather_l2_ref
+    from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
+    from repro_torch.kernels.gather_l2.ref import (
+        gather_l2_q8_ref,
+        gather_l2_ref,
+    )
     from repro_torch.kernels.l2_distance.ops import l2_distance
     from repro_torch.kernels.l2_distance.ref import l2_distance_ref
 
@@ -117,11 +131,9 @@ def phase_kernels(dev):
                 torch.cuda.synchronize()
                 fin = torch.isfinite(ref)
                 err = float((out[fin] - ref[fin]).abs().max())
-                if integer:
-                    ok = torch.equal(out, ref)
-                else:
-                    ok = torch.equal(fin, torch.isfinite(out)) and bool(
-                        torch.allclose(out[fin], ref[fin], rtol=1e-6, atol=0))
+                # bitwise on float data too: the plain version sums a row
+                # in the kernel's order
+                ok = torch.equal(out, ref)
                 checks.append(dict(kernel="gather_l2", d=d, k=k,
                                    integer=integer, max_abs_err=err, ok=ok))
                 if not ok:
@@ -144,7 +156,54 @@ def phase_kernels(dev):
                    + float(np.median(rows)) * DIM)
     g_flops = 3 * N_QUERIES * 16 * DIM
     g_bound = 1e3 * max(g_bytes / HBM_BYTES_PER_S, g_flops / F32_FLOPS)
-    del table, id_sets
+    del table
+
+    # gather_l2_q8: the cold lane's fetch, the same pairs over int8 rows of
+    # a cap-sized table (and a ragged d=65): integer queries with
+    # power-of-two scales (every distance exact) and float queries with
+    # real scales, bitwise both
+    for d, n_rows in ((DIM, CAP), (65, N_BASE)):
+        qt = torch.randint(-127, 128, (n_rows, d), generator=g, device=dev,
+                           dtype=torch.int8)
+        sc_pow2 = 2.0 ** torch.randint(-3, 3, (n_rows,), generator=g,
+                                       device=dev).float()
+        sc_real = 0.1 * torch.rand((n_rows,), generator=g, device=dev)
+        ids = torch.randint(0, n_rows, (N_QUERIES, 16), generator=g,
+                            device=dev)
+        ids[torch.rand((N_QUERIES, 16), generator=g, device=dev) < 0.1] = -1
+        ids = ids.int()
+        for integer in (True, False):
+            q = (torch.randint(-20, 21, (N_QUERIES, d), generator=g,
+                               device=dev).float()
+                 if integer else torch.randn((N_QUERIES, d), generator=g,
+                                             device=dev))
+            sc = sc_pow2 if integer else sc_real
+            out = gather_l2_q8(q, qt, sc, ids)
+            ref = gather_l2_q8_ref(q, qt, sc, ids)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ref)
+            err = float((out[fin] - ref[fin]).abs().max())
+            ok = torch.equal(out, ref)
+            checks.append(dict(kernel="gather_l2_q8", d=d, k=16,
+                               integer=integer, max_abs_err=err, ok=ok))
+            if not ok:
+                raise AssertionError(f"gather_l2_q8 disagrees: {checks[-1]}")
+        if d == DIM:
+            # timing at the search path's shape, float queries, the same
+            # fresh id sets as gather_l2's
+            out = gather_l2_q8(q, qt, sc_real, id_sets[0])
+            ref = gather_l2_q8_ref(q, qt, sc_real, id_sets[0])
+            q8_err = float((out - ref).abs().max())
+            q8_ms = median_ms(lambda i: gather_l2_q8(q, qt, sc_real, i),
+                              [(i,) for i in id_sets])
+            q8_plain = median_ms(
+                lambda i: gather_l2_q8_ref(q, qt, sc_real, i),
+                [(i,) for i in id_sets])
+    q8_bytes = (4 * N_QUERIES * DIM + 2 * 4 * N_QUERIES * 16
+                + float(np.median(rows)) * (DIM + 4))
+    q8_flops = 4 * N_QUERIES * 16 * DIM
+    q8_bound = 1e3 * max(q8_bytes / HBM_BYTES_PER_S, q8_flops / F32_FLOPS)
+    del qt, id_sets
 
     # l2_distance: ground truth (1,000 queries x the base) and the
     # bulk-build block (64 arrivals x the placed nodes), plus ragged
@@ -187,6 +246,16 @@ def phase_kernels(dev):
                       >= g_flops / F32_FLOPS else "operations"),
             library_ms=None,
             shape=f"B={N_QUERIES} K=16 d={DIM} table={CAP}x{DIM}"),
+        "gather_l2_q8": dict(
+            name="gather_l2_q8", route="cuda",
+            source="src/repro_torch/kernels/csrc/gather_l2.cu",
+            replaces="src/repro/kernels/gather_l2/kernel.py:79",
+            max_abs_err=q8_err, ms=q8_ms, plain_ms=q8_plain,
+            bound_ms=q8_bound,
+            bound_by=("bytes" if q8_bytes / HBM_BYTES_PER_S
+                      >= q8_flops / F32_FLOPS else "operations"),
+            library_ms=None,
+            shape=f"B={N_QUERIES} K=16 d={DIM} int8 table={CAP}x{DIM}"),
         "l2_distance": dict(
             name="l2_distance", route="cuda",
             source="src/repro_torch/kernels/csrc/l2_distance.cu",
@@ -199,23 +268,35 @@ def phase_kernels(dev):
     }
 
 
+KERNEL_NAMES = ("gather_l2", "gather_l2_q8", "l2_distance", "beam")
+
+
+def launch_counters():
+    """The wrappers whose `.launches` count each kernel's launches."""
+    from repro_torch.kernels.beam.ops import fused_beam_search
+    from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
+    from repro_torch.kernels.l2_distance.ops import l2_distance
+    return dict(zip(KERNEL_NAMES, (gather_l2, gather_l2_q8, l2_distance,
+                                   fused_beam_search)))
+
+
 def counted(step, fn):
     """Run one step of the main path with the kernel launch counts and
     host-sync count zeroed just before it and read just after."""
     import torch
 
     from repro_torch._device import host_any
-    from repro_torch.kernels.gather_l2.ops import gather_l2
-    from repro_torch.kernels.l2_distance.ops import l2_distance
-    gather_l2.launches = l2_distance.launches = host_any.syncs = 0
+    wrappers = launch_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    host_any.syncs = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return out, dict(step=step, seconds=secs,
-                     launches={"gather_l2": gather_l2.launches,
-                               "l2_distance": l2_distance.launches},
+                     launches={n: w.launches for n, w in wrappers.items()},
                      host_syncs=host_any.syncs)
 
 
@@ -240,6 +321,17 @@ def check_result(res, queries, vectors, live) -> None:
         raise AssertionError("search distances disagree with the rows")
 
 
+def view(idx, **flags):
+    """An index over `idx`'s state under another configuration (the
+    fused route, the tier lanes), its snapshot resolved up front as the
+    serving index's cached one is."""
+    from repro_torch.core.index import LSMVecIndex
+    v = LSMVecIndex(idx.cfg._replace(**flags), state=idx.state,
+                    device=idx.device)
+    v.snapshot()
+    return v
+
+
 def phase_main_path(dev):
     import torch
 
@@ -251,6 +343,7 @@ def phase_main_path(dev):
         recall_at_k,
     )
     from repro_torch.data.synth import make_clustered_vectors
+    from repro_torch.tier import TierPolicy
 
     cfg = HNSWConfig(cap=CAP, dim=DIM)
     n_ins = INSERT_BATCHES * INSERT_WIDTH
@@ -263,7 +356,7 @@ def phase_main_path(dev):
                "node and one [64, placed] distance block copied to the host "
                "per 64 nodes; 1,000,000 rows do not fit the run's time"}})
     steps = []
-    totals = {"gather_l2": 0, "l2_distance": 0}
+    totals = dict.fromkeys(KERNEL_NAMES, 0)
 
     def step(name, fn, **extra_fields):
         out, rec = counted(name, fn)
@@ -273,8 +366,39 @@ def phase_main_path(dev):
         steps.append(rec)
         return out, rec
 
-    def search(idx, snap):
-        return idx.search(queries, K, params=SearchParams(use_snapshot=snap))
+    def search(name, index, snap, truth, vectors, live, dels=()):
+        """One counted 1,000-query search, checked and emitted."""
+        res, rec = step(name, lambda: index.search(
+            queries, K, params=SearchParams(use_snapshot=snap)))
+        n_bad = int(np.isin(res.ids, dels).sum())
+        rec.update(qps=N_QUERIES / rec["seconds"],
+                   recall_at_10=recall_at_k(res.ids, truth),
+                   deleted_returned=n_bad)
+        emit(rec)
+        if n_bad:
+            raise AssertionError(f"{n_bad} deleted ids returned")
+        check_result(res, queries, vectors, live)
+        return res, rec
+
+    def search_routes(prefix, truth, vectors, live, dels=(), probe=True):
+        """The loop routes, then the fused route, whose ids and dists
+        must equal the snapshot loop route's bitwise."""
+        if probe:
+            search(prefix + "_lsm_probe", idx, False, truth, vectors, live,
+                   dels)
+        idx.snapshot()
+        snap, _ = search(prefix + "_snapshot", idx, True, truth, vectors,
+                         live, dels)
+        fused = view(idx, fused_beam=True)
+        res, rec = search(prefix + "_fused", fused, True, truth, vectors,
+                          live, dels)
+        same = bool(np.array_equal(res.ids, snap.ids)
+                    and np.array_equal(res.dists, snap.dists))
+        emit({"step": rec["step"], "ids_and_dists_equal_snapshot": same})
+        if not same:
+            raise AssertionError(f"{rec['step']}: the fused route's ids "
+                                 "differ from the snapshot route's")
+        return snap
 
     torch.cuda.reset_peak_memory_stats(dev)
     idx, rec = step("build", lambda: LSMVecIndex.build(cfg, base, seed=0))
@@ -282,13 +406,8 @@ def phase_main_path(dev):
     truth, rec = step("ground_truth",
                       lambda: brute_force_knn(base, queries, K))
     emit(rec)
-    for snap in (False, True):
-        res, rec = step("search_snapshot" if snap else "search_lsm_probe",
-                        lambda: search(idx, snap))
-        rec.update(qps=N_QUERIES / rec["seconds"],
-                   recall_at_10=recall_at_k(res.ids, truth))
-        emit(rec)
-        check_result(res, queries, base, np.ones(N_BASE, bool))
+    all_live = np.ones(N_BASE, bool)
+    search_routes("search", truth, base, all_live)
     for b in range(INSERT_BATCHES):
         rows = extra[b * INSERT_WIDTH:(b + 1) * INSERT_WIDTH]
         res, rec = step(f"insert_batch_{b}", lambda: idx.insert_batch(rows))
@@ -303,11 +422,8 @@ def phase_main_path(dev):
     truth_all, rec = step("ground_truth_all",
                           lambda: brute_force_knn(allv, queries, K))
     emit(rec)
-    res, rec = step("search_after_insert", lambda: search(idx, True))
-    rec.update(qps=N_QUERIES / rec["seconds"],
-               recall_at_10=recall_at_k(res.ids, truth_all))
-    emit(rec)
-    check_result(res, queries, allv, np.ones(n_all, bool))
+    search_routes("search_after_insert", truth_all, allv,
+                  np.ones(n_all, bool), probe=False)
 
     rng = np.random.default_rng(3)
     dels = rng.choice(n_all, int(DELETE_FRACTION * n_all), replace=False)
@@ -319,18 +435,7 @@ def phase_main_path(dev):
     truth_live, rec = step("ground_truth_live", lambda: brute_force_knn(
         allv, queries, K, live=live))
     emit(rec)
-    for snap in (False, True):
-        res, rec = step("search_after_delete"
-                        + ("_snapshot" if snap else "_lsm_probe"),
-                        lambda: search(idx, snap))
-        n_bad = int(np.isin(res.ids, dels).sum())
-        rec.update(qps=N_QUERIES / rec["seconds"],
-                   recall_at_10=recall_at_k(res.ids, truth_live),
-                   deleted_returned=n_bad)
-        emit(rec)
-        if n_bad:
-            raise AssertionError(f"{n_bad} deleted ids returned")
-        check_result(res, queries, allv, live)
+    search_routes("search_after_delete", truth_live, allv, live, dels)
     rep, rec = step("consolidate", lambda: idx.maintain("consolidate"))
     rec.update(reclaimed=rep.reclaimed)
     emit(rec)
@@ -338,18 +443,47 @@ def phase_main_path(dev):
         raise AssertionError(f"consolidate reclaimed {rep.reclaimed}")
     final = {}
     for snap in (False, True):
-        res, rec = step("search_after_consolidate"
-                        + ("_snapshot" if snap else "_lsm_probe"),
-                        lambda: search(idx, snap))
-        n_bad = int(np.isin(res.ids, dels).sum())
-        rec.update(qps=N_QUERIES / rec["seconds"],
-                   recall_at_10=recall_at_k(res.ids, truth_live),
-                   deleted_returned=n_bad)
+        if snap:
+            idx.snapshot()
+        res, rec = search("search_after_consolidate"
+                          + ("_snapshot" if snap else "_lsm_probe"),
+                          idx, snap, truth_live, allv, live, dels)
         final[snap] = (res, rec["recall_at_10"])
-        emit(rec)
-        if n_bad:
-            raise AssertionError(f"{n_bad} deleted ids returned")
-        check_result(res, queries, allv, live)
+    res, _ = search("search_after_consolidate_fused",
+                    view(idx, fused_beam=True), True, truth_live, allv,
+                    live, dels)
+    if not (np.array_equal(res.ids, final[True][0].ids)
+            and np.array_equal(res.dists, final[True][0].dists)):
+        raise AssertionError("the fused route's ids differ after "
+                             "consolidate")
+
+    # the tiered store: demote the cold three quarters by the heat the
+    # searches above recorded, then search on the int8 lane with the
+    # exact rerank, by the snapshot loop route and by the fused route
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
+    rep, rec = step("tier_maintain", lambda: idx.maintain(
+        "tier", policy=TierPolicy(**TIER_POLICY)))
+    rec.update(demoted=rep.demoted, promoted=rep.promoted)
+    emit(rec)
+    if rep.demoted == 0:
+        raise AssertionError("the tier pass demoted nothing")
+    t_loop, _ = search("search_tier_snapshot", view(idx, tier=True), True,
+                       truth_live, allv, live, dels)
+    t_fused, _ = search("search_tier_fused",
+                        view(idx, tier=True, fused_beam=True), True,
+                        truth_live, allv, live, dels)
+    same = bool(np.array_equal(t_loop.ids, t_fused.ids)
+                and np.array_equal(t_loop.dists, t_fused.dists))
+    emit({"phase": "tier", "demoted": rep.demoted, "promoted": rep.promoted,
+          "cold_rows": int((~(idx.state.hot | (idx.state.levels > 0))
+                            & (idx.state.levels >= 0)).sum()),
+          "ids_and_dists_equal_fused": same,
+          "peak_memory_gib_since_tier_step":
+              torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+    if not same:
+        raise AssertionError("tiered search: the fused route's ids differ "
+                             "from the loop route's")
     # recall on this data is low at this size (0.1995 for the first
     # search, the same on the CPU route): the floor only catches breakage
     for rec in steps:
@@ -359,7 +493,7 @@ def phase_main_path(dev):
         if n == 0:
             raise AssertionError(f"main path never launched {kname}")
     emit({"phase": "main_path", "launches": totals,
-          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+          "peak_memory_gib_before_tier_step": peak_gib,
           "host_syncs_per_search": {
               r["step"]: r["host_syncs"] for r in steps
               if r["step"].startswith("search")}})
@@ -368,45 +502,61 @@ def phase_main_path(dev):
 
 def phase_parity(dev, idx, queries, truth_live, final):
     """Card against the plain route: a small integer-valued run on both
-    devices; the full-size queries with the kernels swapped out on the
-    card; and the final full-size state copied to the CPU and searched
-    there."""
+    devices, on the loop, fused and tiered routes; the full-size queries
+    with the kernels swapped out on the card; and the final full-size
+    state copied to the CPU and searched there."""
     from repro_torch.bridge import hnsw_state_from_numpy, hnsw_state_to_numpy
     from repro_torch.core import hnsw
     from repro_torch.core.backend import SearchParams
     from repro_torch.core.hnsw import HNSWConfig
     from repro_torch.core.index import LSMVecIndex, recall_at_k
     from repro_torch.kernels.gather_l2.ref import gather_l2_ref
+    from repro_torch.tier import TierPolicy
 
     cfg = HNSWConfig(cap=4096, dim=65)
     rng = np.random.default_rng(21)
-    base = rng.integers(-4, 5, (2000, 65)).astype(np.float32)
-    extra = rng.integers(-4, 5, (512, 65)).astype(np.float32)
-    qs = rng.integers(-4, 5, (200, 65)).astype(np.float32)
+
+    def ints(n):
+        # integer-valued, and every row's last coordinate 254: its absmax,
+        # so a demoted row's int8 scale is exactly 2 and every cold-lane
+        # distance an exact integer, whatever order a device sums it in
+        x = rng.integers(-4, 5, (n, 65)).astype(np.float32)
+        x[:, -1] = 254.0
+        return x
+    base, extra, qs = ints(2000), ints(512), ints(200)
     dels = rng.choice(2512, 25, replace=False)
 
     def run(device):
-        out = []
+        out, fused_same = [], []
         t0 = time.perf_counter()
         small = LSMVecIndex.build(cfg, base, seed=7, device=device)
 
-        def both():
-            for snap in (False, True):
-                r = small.search(qs, K, params=SearchParams(use_snapshot=snap))
-                out.append((r.ids, r.dists))
-        both()
+        def routes(tier=False):
+            loop = view(small, tier=True) if tier else small
+            res = [loop.search(qs, K, params=SearchParams(use_snapshot=snap))
+                   for snap in (False, True)]
+            res.append(view(small, fused_beam=True, tier=tier).search(
+                qs, K, params=SearchParams(use_snapshot=True)))
+            out.extend((r.ids, r.dists) for r in res)
+            fused_same.append(bool(np.array_equal(res[1].ids, res[2].ids)
+                                   and np.array_equal(res[1].dists,
+                                                      res[2].dists)))
+        routes()
         small.insert_batch(extra[:256])
         small.insert_batch(extra[256:])
-        both()
+        routes()
         small.delete_batch(dels)
-        both()
+        routes()
         small.maintain("consolidate")
-        both()
+        routes()
+        small.maintain("tier", policy=TierPolicy(
+            hot_frac=0.25, max_demote=cfg.cap, max_promote=64))
+        routes(tier=True)
         return out, hnsw_state_to_numpy(small.state), \
-            time.perf_counter() - t0
+            time.perf_counter() - t0, fused_same
 
-    card, card_state, card_s = run(dev)
-    cpu, cpu_state, cpu_s = run("cpu")
+    card, card_state, card_s, card_fused = run(dev)
+    cpu, cpu_state, cpu_s, cpu_fused = run("cpu")
     mismatched = [i for i, (a, b) in enumerate(zip(card, cpu))
                   if not (np.array_equal(a[0], b[0])
                           and np.array_equal(a[1], b[1]))]
@@ -414,10 +564,15 @@ def phase_parity(dev, idx, queries, truth_live, final):
                         if not np.array_equal(card_state[k], cpu_state[k]))
     emit({"phase": "parity_small", "cap": cfg.cap, "dim": cfg.dim,
           "searches": len(card), "mismatched_searches": mismatched,
-          "state_fields_differing": state_diff, "card_seconds": card_s,
-          "cpu_seconds": cpu_s})
-    if mismatched:
-        raise AssertionError(f"card and CPU search ids differ: {mismatched}")
+          "state_fields_differing": state_diff,
+          "fused_equals_snapshot": {"card": card_fused, "cpu": cpu_fused},
+          "card_seconds": card_s, "cpu_seconds": cpu_s})
+    if mismatched or state_diff:
+        raise AssertionError(f"card and CPU differ: searches {mismatched}, "
+                             f"state fields {state_diff}")
+    if not all(card_fused + cpu_fused):
+        raise AssertionError("the fused route differs from the snapshot "
+                             "route on the small run")
 
     # full size: the final index's queries with both kernels swapped for
     # their plain versions on the card
@@ -431,14 +586,13 @@ def phase_parity(dev, idx, queries, truth_live, final):
         hnsw.gather_l2 = saved
     rows = []
     for snap, res in plain.items():
-        r_plain = recall_at_k(res.ids, truth_live)
-        r_kernel = final[snap][1]
-        same = float((res.ids == final[snap][0].ids).all(1).mean())
-        rows.append(dict(route="snapshot" if snap else "lsm_probe",
-                         recall_kernel=r_kernel, recall_plain=r_plain,
-                         queries_with_same_ids=same))
-        if abs(r_plain - r_kernel) > 0.01:
-            raise AssertionError(f"plain-route recall differs: {rows[-1]}")
+        kern = final[snap][0]
+        rows.append(dict(
+            route="snapshot" if snap else "lsm_probe",
+            recall_kernel=final[snap][1],
+            recall_plain=recall_at_k(res.ids, truth_live),
+            queries_with_same_ids=float((res.ids == kern.ids).all(1).mean()),
+            same_dists=bool(np.array_equal(res.dists, kern.dists))))
     cpu_idx = LSMVecIndex(idx.cfg, state=hnsw_state_from_numpy(
         hnsw_state_to_numpy(idx.state), "cpu"), device="cpu")
     t0 = time.perf_counter()
@@ -447,24 +601,155 @@ def phase_parity(dev, idx, queries, truth_live, final):
                      recall_plain=recall_at_k(res.ids, truth_live),
                      queries_with_same_ids=float(
                          (res.ids == final[False][0].ids).all(1).mean()),
+                     same_dists=bool(np.array_equal(
+                         res.dists, final[False][0].dists)),
                      cpu_seconds=time.perf_counter() - t0))
-    if abs(rows[-1]["recall_plain"] - rows[-1]["recall_kernel"]) > 0.01:
-        raise AssertionError(f"CPU-route recall differs: {rows[-1]}")
     emit({"phase": "parity_full", "runs": rows})
+    # the card's plain routes sum rows in the kernels' order: the same ids
+    # and dists for every query; the CPU route the same ids (whether its
+    # dists match bit for bit is reported, not required)
+    for row in rows:
+        on_card = row["route"] != "lsm_probe_on_cpu"
+        if row["queries_with_same_ids"] != 1.0 \
+                or (on_card and not row["same_dists"]):
+            raise AssertionError(f"{row['route']} differs from the kernel "
+                                 f"route: {row}")
+
+
+def _beam_rows(cfg, snap, routable, entries, out):
+    """Distinct rows one beam launch had to read, from its heat lanes:
+    the expanded nodes (adjacency rows), the fetched candidates (vector
+    rows) and the candidates that were eligible at some trip (code
+    rows): every live neighbour of a query's expanded nodes but the
+    query's own entry, which is visited from the start."""
+    import torch
+    nodes, mask = out[3], out[4]
+    expanded = nodes >= 0
+    nbrs = snap[nodes.clamp_min(0).long()]              # [Bq, T, M]
+    fetched = nbrs[mask]
+    valid = expanded[..., None] & (nbrs >= 0) & (nbrs < cfg.cap)
+    live = valid & routable[nbrs.clamp(0, cfg.cap - 1).long()] \
+        & (nbrs != entries[:, None, None])
+    return (int(torch.unique(nodes[expanded]).numel()),
+            int(torch.unique(fetched).numel()),
+            int(torch.unique(nbrs[live]).numel()))
+
+
+def phase_beam(dev, idx, queries):
+    """The beam megakernel over the built index's snapshot, 1,000 queries
+    at ef = 48 with the filter on and a lazy-delete lane (1 % of the
+    nodes marked not returnable), for B in {1, 4} and rho in {1.0, 0.5},
+    and once with the tier lanes: bitwise against the loop route on the
+    card (which fetches through gather_l2 / gather_l2_q8) and against its
+    plain version.  Timed at B = 1, rho = 1 (the default configuration);
+    the bound counts the distinct rows the run's own heat lanes say it
+    had to read (`_beam_rows`).  The plain version sums rows in the
+    kernel's order, so it too must agree bitwise, on this float data."""
+    import torch
+
+    from repro_torch.core import hnsw, simhash, traversal
+    from repro_torch.kernels.beam.ops import beam_iter_cap, fused_beam_search
+    from repro_torch.kernels.beam.ref import beam_search_ref
+
+    cfg, st = idx.cfg, idx.state
+    snap = idx.snapshot()
+    qs = torch.from_numpy(queries).to(dev)
+    ep, d_ep = hnsw._descend_upper(cfg, st, qs)
+    ep, d_ep = ep.to(torch.int32).contiguous(), d_ep.contiguous()
+    code_q = simhash.encode(st.proj, qs)
+    q_norm = hnsw._norm(qs)
+    routable = st.levels >= 0
+    g = torch.Generator(device=dev).manual_seed(5)
+    returnable = routable & ~st.tombstone & (
+        torch.rand((cfg.cap,), generator=g, device=dev) >= 0.01)
+    args = (qs, ep, d_ep, snap, st.vectors, st.codes, code_q, routable,
+            q_norm, st.mean_norm)
+    tier_lanes = dict(resident=hnsw._exact_resident(st), qvecs=st.qvecs,
+                      qscale=st.qscale)
+    ef = cfg.ef_search
+    rows, timed = [], None
+    for B, rho, tier in ((1, 1.0, False), (1, 0.5, False), (4, 1.0, False),
+                         (4, 0.5, False), (1, 1.0, True)):
+        kw = dict(ef=ef, k=K, m_bits=cfg.m_bits, eps=cfg.eps, rho=rho,
+                  max_iters=2 * ef, use_filter=True, n_expand=B)
+        opt = dict(returnable=returnable, **(tier_lanes if tier else {}))
+        got = fused_beam_search(*args, **opt, **kw)
+        dist_fn = (hnsw._tier_dist_fn if tier else hnsw._dist_fn)(st, qs)
+        loop = traversal.beam_search(
+            qs, ep, d_ep, hnsw._snapshot_adj_fn(snap), dist_fn, st.codes,
+            code_q, routable, cap=cfg.cap, ef=ef, k=K, m_bits=cfg.m_bits,
+            eps=cfg.eps, rho=rho, max_iters=2 * ef, use_filter=True,
+            q_norm=q_norm, mean_norm=st.mean_norm, n_expand=B, M=cfg.M,
+            returnable=returnable)
+        loop = (loop.ids, loop.dists, torch.stack(list(loop.stats), 1),
+                loop.heat_nodes, loop.heat_mask)
+        plain = beam_search_ref(*args, **opt, **kw)
+        torch.cuda.synchronize()
+        names = ("ids", "dists", "stats", "heat_nodes", "heat_mask")
+        vs_loop = {n: bool(torch.equal(a, b))
+                   for n, a, b in zip(names, got, loop)}
+        vs_plain = {n: bool(torch.equal(a, b))
+                    for n, a, b in zip(names, got, plain)}
+        ids_same = float((got[0] == plain[0]).all(1).float().mean())
+        fin = torch.isfinite(plain[1]) & torch.isfinite(got[1])
+        err = float((got[1][fin] - plain[1][fin]).abs().max())
+        rows.append(dict(B=B, rho=rho, tier=tier, bitwise_vs_loop=vs_loop,
+                         bitwise_vs_plain=vs_plain,
+                         queries_with_plain_ids=ids_same,
+                         max_abs_err_vs_plain=err,
+                         mean_hops=float(got[2][:, 3].float().mean())))
+        if not (all(vs_loop.values()) and all(vs_plain.values())):
+            raise AssertionError(f"beam kernel disagrees: {rows[-1]}")
+        if (B, rho, tier) == (1, 1.0, False):
+            stats = got[2].sum(0).tolist()
+            ms = median_ms(lambda: fused_beam_search(*args, **opt, **kw),
+                           [()] * 7, warmup=2)
+            plain_ms = median_ms(lambda: beam_search_ref(*args, **opt, **kw),
+                                 [()] * 3, warmup=1)
+            timed = dict(err=err, ms=ms, plain_ms=plain_ms, stats=stats,
+                         kw=kw, rows=_beam_rows(cfg, snap, routable, ep, got))
+    # bytes the search must move, each distinct row read once over the
+    # whole block: the adjacency rows of the expanded nodes, the vector
+    # rows of the fetched candidates (the entries' distances come in),
+    # the 4-byte SimHash words and the live byte of every candidate that
+    # was eligible; the queries with their codes, norms and entries; and
+    # the outputs (heap, stats, heat lanes)
+    n_adj, n_vec, n_code = timed["rows"]
+    iter_cap = beam_iter_cap(2 * ef, 1, ef)
+    b_bytes = (4 * cfg.M * n_adj + 4 * DIM * n_vec
+               + (4 * cfg.words + 1) * n_code
+               + N_QUERIES * (4 * DIM + 4 * cfg.words + 12)
+               + N_QUERIES * (8 * ef + 16 + iter_cap * (4 + cfg.M)))
+    emit({"phase": "beam", "runs": rows, "stats_totals": timed["stats"],
+          "distinct_rows": dict(adjacency=n_adj, vectors=n_vec, codes=n_code),
+          "bytes": b_bytes})
+    return dict(
+        name="beam", route="cuda",
+        source="src/repro_torch/kernels/csrc/beam.cu",
+        replaces="src/repro/kernels/beam/kernel.py:347",
+        max_abs_err=timed["err"], ms=timed["ms"], plain_ms=timed["plain_ms"],
+        bound_ms=1e3 * b_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+        library_ms=None,
+        shape=f"Bq={N_QUERIES} ef={ef} M={cfg.M} B=1 d={DIM} cap={CAP}")
 
 
 def phase_profile(idx, queries, rows):
-    """Where the time goes: one snapshot search of the 1,000 queries and
-    one insert_batch of 256 fresh rows under torch.profiler; the device's
-    busy share is the summed kernel time over the wall time."""
+    """Where the time goes: one snapshot search of the 1,000 queries on
+    the loop route and on the fused route, and one insert_batch of 256
+    fresh rows, under torch.profiler; the device's busy share is the
+    summed kernel time over the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.backend import SearchParams
     out = []
+    idx.snapshot()
+    fused = view(idx, fused_beam=True)
     for name, fn in (
             ("search_snapshot", lambda: idx.search(
+                queries, K, params=SearchParams(use_snapshot=True))),
+            ("search_fused", lambda: fused.search(
                 queries, K, params=SearchParams(use_snapshot=True))),
             ("insert_batch_256", lambda: idx.insert_batch(rows))):
         torch.cuda.synchronize()
@@ -517,15 +802,20 @@ def main() -> int:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.library("gather_l2")
-    ptxas = {name: [ln.strip() for ln in text.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, text in _build.last_build.get("log", {}).items()}
+    ptxas = {}
+    for name, text in _build.last_build.get("log", {}).items():
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spill = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                            text)]
+        ptxas[name] = dict(kernels=len(regs), max_registers=max(regs or [0]),
+                           max_spill_store_bytes=max(spill or [0]))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.last_build.get("seconds"), "ptxas": ptxas})
 
     kernels = phase_kernels(dev)
     idx, queries, truth_live, final, totals = phase_main_path(dev)
     phase_parity(dev, idx, queries, truth_live, final)
+    kernels["beam"] = phase_beam(dev, idx, queries)
     from repro_torch.data.synth import make_clustered_vectors
     phase_profile(idx, queries,
                   make_clustered_vectors(256, DIM, seed=2))

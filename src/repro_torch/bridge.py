@@ -4,10 +4,9 @@ The reference exports a state with stable string keys — `lsm.dehydrate`
 ("mem_keys", "level_keys/0", ...; an `HNSWState` flattens the same way,
 with its tree under "store/") — and `*_from_numpy` builds the port's
 tensors from such a dict.  `*_to_numpy` is the inverse, so a test can
-compare the two packages field by field.  SimHash words are uint32 in
-the reference and int64 here; the tier lanes of the reference's state
-("hot", "qvecs", "qscale", "tier_heat") have no counterpart in the port
-and are skipped.
+compare the two packages field by field, the tier lanes ("hot",
+"qvecs", "qscale", "tier_heat") included.  SimHash words are uint32 in
+the reference and int64 here.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Hybrid memory/disk hierarchical proximity graph (paper §3.2), on tensors.
 
-The counterpart of `repro.core.hnsw` for the default configuration
-(no tier lanes, no fused beam, lazy delete).  Upper HNSW layers are
+The counterpart of `repro.core.hnsw` for the lazy-delete configuration,
+with the tiered store (`tier`) and the fused beam megakernel
+(`fused_beam`) as options.  Upper HNSW layers are
 memory-resident dense adjacency tensors; the bottom layer lives in the
 LSM tree, so every structural update is an out-of-place LSM write.
 Vectors sit in one id-sorted tensor fetched by offset through the
@@ -32,7 +33,8 @@ from repro_torch.core.traversal import (
     greedy_descent,
     stable_topk_asc,
 )
-from repro_torch.kernels.gather_l2.ops import gather_l2
+from repro_torch.kernels.beam.ops import fused_beam_search
+from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
 from repro_torch.kernels.l2_distance.ops import l2_distance
 
 _I32 = torch.int32
@@ -60,6 +62,21 @@ class HNSWConfig(NamedTuple):
     #: `consolidate` splices tombstones out later.  The eager Algorithm-2
     #: route (False) is not ported yet: `delete_batch` raises on it.
     lazy_delete: bool = True
+    #: two-lane tiered store: cold nodes answer beam expansions from the
+    #: int8 quantized lane and the final candidate window is reranked
+    #: against full-precision rows from the cold store.
+    tier: bool = False
+    #: width of the exact-rerank window over the beam result (clamped to
+    #: ef_search).  Recall loss from cold-lane quantization is bounded by
+    #: this window: any true neighbor the approximate beam ranks within
+    #: the top `rerank` gets its exact distance back before the final cut.
+    rerank: int = 32
+    #: fused beam-search megakernel: run the whole bottom-layer beam loop
+    #: for a query block in one launch (`repro_torch.kernels.beam`)
+    #: instead of the batched Python loop.  Only the snapshot serving path
+    #: routes through it (plain LSM-probe searches keep the loop); results
+    #: are the same either way, so flipping this never changes answers.
+    fused_beam: bool = False
     #: scale on the Exp(1) level draw: P(level >= 1) = exp(-1/level_scale)
     level_scale: float = 1.0
 
@@ -103,6 +120,14 @@ class HNSWState(NamedTuple):
     tombstone: torch.Tensor    # bool[cap]
     n_tombstones: torch.Tensor  # int32[]
     n_delete_noops: torch.Tensor  # int32[] — deletes of absent/dead ids
+    # tiered hot/cold lanes: `hot` marks nodes whose dense f32 row is
+    # RAM-resident; cold nodes are served from (qvecs, qscale) — per-row
+    # absmax int8 — and only touch the full-precision row at rerank.
+    # `tier_heat` is the demotion policy's EWMA of per-node heat.
+    hot: torch.Tensor          # bool[cap] — True = dense lane resident
+    qvecs: torch.Tensor        # int8[cap, dim] — cold-lane codes
+    qscale: torch.Tensor       # f32[cap] — cold-lane per-row scales
+    tier_heat: torch.Tensor    # f32[cap] — heat EWMA (policy state)
 
 
 def init(cfg: HNSWConfig, proj: torch.Tensor, device=None) -> HNSWState:
@@ -132,7 +157,13 @@ def init(cfg: HNSWConfig, proj: torch.Tensor, device=None) -> HNSWState:
         max_level=scalar(0), mean_norm=scalar(1.0, torch.float32),
         heat=torch.zeros((cfg.cap, cfg.M), dtype=_I32, device=device),
         tombstone=torch.zeros((cfg.cap,), dtype=torch.bool, device=device),
-        n_tombstones=scalar(0), n_delete_noops=scalar(0))
+        n_tombstones=scalar(0), n_delete_noops=scalar(0),
+        hot=torch.ones((cfg.cap,), dtype=torch.bool, device=device),
+        qvecs=torch.zeros((cfg.cap, cfg.dim), dtype=torch.int8,
+                          device=device),
+        qscale=torch.zeros((cfg.cap,), dtype=torch.float32, device=device),
+        tier_heat=torch.zeros((cfg.cap,), dtype=torch.float32,
+                              device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +225,60 @@ def _dist_fn(state: HNSWState, qs: torch.Tensor):
     def fn(ids):
         return gather_l2(qs, state.vectors, ids.contiguous())
     return fn
+
+
+def _exact_resident(state: HNSWState) -> torch.Tensor:
+    """bool[cap]: nodes whose f32 row is RAM-resident.
+
+    Hot-lane nodes by definition; upper-layer nodes too, because their
+    rows are already in the resident upper routing cache regardless of
+    lane — demoting one only drops its bottom-lane dense copy.
+    """
+    return state.hot | (state.levels > 0)
+
+
+def _tier_dist_fn(state: HNSWState, qs: torch.Tensor):
+    """Mixed-lane distance: exact for resident rows, dequant+L2 for cold.
+
+    Each id hits exactly one lane (the other contributes +inf), so the
+    lanes merge with an elementwise min.  Cold distances are approximate;
+    `_tier_rerank` restores exactness for the final candidate window.
+    """
+    qs = qs.contiguous()
+    resident = _exact_resident(state)
+
+    def fn(ids):
+        res = resident[ids.clamp_min(0).long()]
+        hot_ids = torch.where((ids >= 0) & res, ids, -1)
+        cold_ids = torch.where((ids >= 0) & ~res, ids, -1)
+        return torch.minimum(
+            gather_l2(qs, state.vectors, hot_ids),
+            gather_l2_q8(qs, state.qvecs, state.qscale, cold_ids))
+    return fn
+
+
+def _tier_rerank(cfg: HNSWConfig, state: HNSWState, qs: torch.Tensor,
+                 res: BeamResult) -> BeamResult:
+    """Exact rerank of the top-`cfg.rerank` beam window (the tier
+    contract), for every lane: cold candidates get their full-precision
+    row fetched from the cold store (one modeled disk read each, counted
+    in n_vec), the window re-sorts on exact distances (stable, as
+    `lax.top_k`), and everything past the window keeps its approximate
+    ordering."""
+    r = max(1, min(cfg.rerank, res.ids.shape[1]))
+    ids_r = res.ids[:, :r]
+    cold = (ids_r >= 0) & ~_exact_resident(state)[ids_r.clamp_min(0).long()]
+    fetch = torch.where(cold, ids_r, -1)
+    d_exact = gather_l2(qs.contiguous(), state.vectors, fetch)
+    d_new, order = stable_topk_asc(
+        torch.where(cold, d_exact, res.dists[:, :r]), r)
+    ids = res.ids.clone()
+    ids[:, :r] = ids_r.gather(1, order)
+    dists = res.dists.clone()
+    dists[:, :r] = d_new
+    stats = res.stats._replace(
+        n_vec=res.stats.n_vec + cold.sum(1, dtype=_I32))
+    return res._replace(ids=ids, dists=dists, stats=stats)
 
 
 def _bottom_adj_fn(cfg: HNSWConfig, state: HNSWState):
@@ -306,38 +391,91 @@ def _dedup_to_inf(ids: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
 # search (paper §3.2 "Search in LSM-VEC")
 # ---------------------------------------------------------------------------
 
+def _search_knobs(cfg: HNSWConfig, rho, ef, use_filter, n_expand):
+    ef = ef or cfg.ef_search
+    n_expand = cfg.n_expand if n_expand is None else n_expand
+    return (cfg.rho if rho is None else rho, ef,
+            cfg.use_filter if use_filter is None else use_filter,
+            max(1, min(n_expand, ef)))
+
+
 def search_batch(cfg: HNSWConfig, state: HNSWState, qs: torch.Tensor,
                  *, rho: float | None = None, ef: int | None = None,
                  use_filter: bool | None = None,
                  n_expand: int | None = None,
                  snapshot: torch.Tensor | None = None,
-                 active: torch.Tensor | None = None) -> BeamResult:
+                 active: torch.Tensor | None = None,
+                 record_heat: bool = True) -> BeamResult:
     """Batched search: upper greedy descent -> sampled bottom beam.
 
     `snapshot` (from `lsm.snapshot_rows`) serves bottom-layer adjacency
     by row gather instead of per-hop LSM probes — identical results
     against an unchanged tree.  `active` (bool[Bq]) masks padded lanes.
     Under `cfg.lazy_delete` tombstoned nodes are routable but never
-    returned.
+    returned.  Under `cfg.tier` cold rows are scored from the int8 lane
+    and the final window is reranked exactly.
+
+    With `cfg.fused_beam` and a snapshot the bottom beam runs as one
+    `fused_beam_search` launch; otherwise as the batched loop, which
+    always records heat (`record_heat` is the fused route's skip: False
+    returns -1/False heat lanes).
     """
-    ef = ef or cfg.ef_search
-    rho = cfg.rho if rho is None else rho
-    use_filter = cfg.use_filter if use_filter is None else use_filter
-    n_expand = cfg.n_expand if n_expand is None else n_expand
-    n_expand = max(1, min(n_expand, ef))
+    if cfg.fused_beam and snapshot is not None:
+        return _search_batch_fused(cfg, state, qs, snapshot=snapshot,
+                                   active=active, rho=rho, ef=ef,
+                                   use_filter=use_filter, n_expand=n_expand,
+                                   record_heat=record_heat)
+    rho, ef, use_filter, n_expand = _search_knobs(cfg, rho, ef, use_filter,
+                                                  n_expand)
     routable = state.levels >= 0
     returnable = (routable & ~state.tombstone) if cfg.lazy_delete else None
     ep, d_ep = _descend_upper(cfg, state, qs)
     code_q = simhash.encode(state.proj, qs)
     adj_fn = _bottom_adj_fn(cfg, state) if snapshot is None \
         else _snapshot_adj_fn(snapshot)
-    return beam_search(
-        qs, ep, d_ep, adj_fn, _dist_fn(state, qs),
+    dist_fn = _tier_dist_fn(state, qs) if cfg.tier else _dist_fn(state, qs)
+    res = beam_search(
+        qs, ep, d_ep, adj_fn, dist_fn,
         state.codes, code_q, routable,
         cap=cfg.cap, ef=ef, k=cfg.k, m_bits=cfg.m_bits, eps=cfg.eps,
         rho=rho, max_iters=2 * ef, use_filter=use_filter,
         q_norm=_norm(qs), mean_norm=state.mean_norm,
         n_expand=n_expand, M=cfg.M, active=active, returnable=returnable)
+    return _tier_rerank(cfg, state, qs, res) if cfg.tier else res
+
+
+def _search_batch_fused(cfg: HNSWConfig, state: HNSWState, qs: torch.Tensor,
+                        *, snapshot: torch.Tensor,
+                        active: torch.Tensor | None = None,
+                        rho: float | None = None, ef: int | None = None,
+                        use_filter: bool | None = None,
+                        n_expand: int | None = None,
+                        record_heat: bool = True) -> BeamResult:
+    """Fused-megakernel route of the snapshot serving path: the prelude
+    (upper greedy descent, SimHash query encode, norms) runs per query
+    block as the loop route's does, then one `fused_beam_search` launch
+    runs the whole bottom beam over the dense operands (snapshot
+    adjacency, routable/returnable lanes, tier split), then the tier
+    rerank.  Results equal the loop route's."""
+    rho, ef, use_filter, n_expand = _search_knobs(cfg, rho, ef, use_filter,
+                                                  n_expand)
+    routable = state.levels >= 0
+    returnable = (routable & ~state.tombstone) if cfg.lazy_delete else None
+    ep, d_ep = _descend_upper(cfg, state, qs)
+    qs = qs.contiguous()
+    ids, dists, stats, heat_nodes, heat_mask = fused_beam_search(
+        qs, ep.to(_I32).contiguous(), d_ep.contiguous(), snapshot,
+        state.vectors, state.codes, simhash.encode(state.proj, qs),
+        routable, _norm(qs), state.mean_norm, returnable=returnable,
+        resident=_exact_resident(state) if cfg.tier else None,
+        qvecs=state.qvecs if cfg.tier else None,
+        qscale=state.qscale if cfg.tier else None, active=active,
+        ef=ef, k=cfg.k, m_bits=cfg.m_bits, eps=cfg.eps, rho=rho,
+        max_iters=2 * ef, use_filter=use_filter, n_expand=n_expand,
+        record_heat=record_heat)
+    res = BeamResult(ids, dists, IOStats(*stats.unbind(1)), heat_nodes,
+                     heat_mask)
+    return _tier_rerank(cfg, state, qs, res) if cfg.tier else res
 
 
 def search(cfg: HNSWConfig, state: HNSWState, q: torch.Tensor,
@@ -771,7 +909,12 @@ def consolidate(cfg: HNSWConfig, state: HNSWState, *,
         # repaired rows changed slot alignment; their heat restarts
         heat=torch.where((tomb | changed)[:, None], 0, state.heat),
         tombstone=torch.zeros_like(tomb),
-        n_tombstones=torch.zeros_like(state.n_tombstones))
+        n_tombstones=torch.zeros_like(state.n_tombstones),
+        # reclaimed slots leave the tier: back to the (empty) hot lane so
+        # per-lane accounting never counts dead ids as cold rows
+        hot=torch.where(tomb, True, state.hot),
+        qscale=torch.where(tomb, 0.0, state.qscale),
+        tier_heat=torch.where(tomb, 0.0, state.tier_heat))
     zero = torch.zeros((), dtype=_I32, device=levels.device)
     stats = IOStats(
         n_adj=((1 + cfg.M) * n_reclaimed + changed.sum()).to(_I32),

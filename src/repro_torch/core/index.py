@@ -29,6 +29,7 @@ from repro_torch.core.backend import (
 from repro_torch.core.iostats import IOStats
 from repro_torch.core.traversal import stable_topk_asc
 from repro_torch.kernels.l2_distance.ops import l2_distance
+from repro_torch.tier import policy as tier_policy
 
 
 def brute_force_knn(vectors, queries, k: int, live=None, block: int = 1024,
@@ -207,8 +208,10 @@ class LSMVecIndex:
 
         `params.use_snapshot` (or `pad_to`) serves bottom-layer adjacency
         from the cached dense LSM view instead of per-hop LSM probes —
-        identical results.  `params.record_heat` adds the fetched edges
-        to `state.heat`.
+        identical results; with `cfg.fused_beam` that route runs the
+        whole bottom beam as one kernel launch.  `params.record_heat` adds
+        the fetched edges to `state.heat` (False also drops the heat
+        lanes from the fused route).
         """
         p = (params or SearchParams()).resolve(self.cfg)
         k = k or self.cfg.k
@@ -225,7 +228,8 @@ class LSMVecIndex:
             res = hnsw.search_batch(
                 self.cfg, self.state, torch.from_numpy(padded).to(self.device),
                 snapshot=self.snapshot(),
-                active=(torch.arange(width) < nq).to(self.device), **kw)
+                active=(torch.arange(width) < nq).to(self.device),
+                record_heat=p.record_heat, **kw)
         else:
             res = hnsw.search_batch(
                 self.cfg, self.state, torch.from_numpy(qs_np).to(self.device),
@@ -249,11 +253,27 @@ class LSMVecIndex:
 
     def maintain(self, op: str, **params) -> MaintenanceReport:
         """Maintenance entry point; this port runs "consolidate"
-        (`ratio=`: skip below that tombstone share)."""
-        if op != "consolidate":
-            raise ValueError(f"unknown or unported maintenance op {op!r}")
-        n = self.consolidate(ratio=params.get("ratio"))
-        return MaintenanceReport(op=op, applied=n > 0, reclaimed=n)
+        (`ratio=`: skip below that tombstone share) and "tier"
+        (`policy=`: a `TierPolicy`)."""
+        if op == "consolidate":
+            n = self.consolidate(ratio=params.get("ratio"))
+            return MaintenanceReport(op=op, applied=n > 0, reclaimed=n)
+        if op == "tier":
+            moved = self.tier_maintain(params["policy"])
+            return MaintenanceReport(
+                op=op, applied=(moved["demoted"] + moved["promoted"]) > 0,
+                demoted=moved["demoted"], promoted=moved["promoted"])
+        raise ValueError(f"unknown or unported maintenance op {op!r}")
+
+    def tier_maintain(self, policy: "tier_policy.TierPolicy") -> dict:
+        """One batched demote/promote pass of the tier policy.  Returns
+        {"demoted": n, "promoted": n}; no moves when the hot fraction
+        already sits inside the hysteresis band.  The graph is not
+        written, so the cached read snapshot stays valid."""
+        self.state, st, moved = tier_policy.tier_maintain(
+            self.cfg, self.state, policy)
+        self.io_stats = self.io_stats + st
+        return {k: int(v) for k, v in moved.items()}
 
     def consolidate(self, *, ratio: Optional[float] = None) -> int:
         """Splice tombstoned nodes out of the graph and reclaim their

@@ -5,8 +5,9 @@ header, so `nvcc` compiles it in seconds into a shared library that
 `ctypes` loads; the wrappers pass tensor pointers and the current stream
 as integers.  All sources compile in parallel, for `sm_90a`, at first
 use, into `build/torch_kernels/` at the root of the checkout (listed in
-`.gitignore`).  A library's file name carries a hash of its source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+`.gitignore`).  A library's file name carries a hash of its source, of
+every shared header in `csrc/` (`*.cuh`) and of the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ def _nvcc() -> str:
 
 
 def _library_path(src: Path) -> Path:
-    tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{tag}.so"
 
 

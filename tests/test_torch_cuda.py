@@ -5,19 +5,25 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-`gather_l2` is bitwise on integer-valued inputs and allclose at rtol
-1e-6 otherwise (the warp reduction sums in another order);
+`gather_l2` and `gather_l2_q8` are bitwise, on float data too: the
+plain versions sum a row in the kernels' order (`gather_l2/ref.py`).
 `l2_distance` is allclose at rtol 1e-5 with an absolute slack of 1e-3
 of the largest squared norm, for the cancellation in |q|^2 + |c|^2 -
-2 q.c.
+2 q.c.  The beam megakernel equals, bitwise and on float data too, the
+port's loop route on the card (which fetches through `gather_l2` /
+`gather_l2_q8`) and its plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.gather_l2.ops import gather_l2
-from repro_torch.kernels.gather_l2.ref import gather_l2_ref
+from repro_torch.core import simhash, traversal
+from repro_torch.core.hnsw import _snapshot_adj_fn
+from repro_torch.kernels.beam.ops import fused_beam_search
+from repro_torch.kernels.beam.ref import beam_search_ref
+from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
+from repro_torch.kernels.gather_l2.ref import gather_l2_q8_ref, gather_l2_ref
 from repro_torch.kernels.l2_distance.ops import l2_distance
 from repro_torch.kernels.l2_distance.ref import l2_distance_ref
 
@@ -56,10 +62,7 @@ def test_gather_l2_cuda_kernel_matches_plain(d, k):
         torch.cuda.synchronize()
         assert gather_l2.launches == before + 1
         ref = gather_l2_ref(q, table, ids)
-        if integer:
-            assert torch.equal(out, ref)
-        else:
-            torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -96,3 +99,181 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         l2_distance(q, table.T.contiguous().T)
     with pytest.raises(TypeError):
         l2_distance(q.double(), table.double())
+    qt = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+    sc = torch.ones((4,), device=dev)
+    with pytest.raises(TypeError):
+        gather_l2_q8(q, qt.float(), sc, ids)
+    with pytest.raises(ValueError):
+        gather_l2_q8(q, qt, sc[:3], ids)
+    with pytest.raises(ValueError):
+        gather_l2_q8(q, qt, sc.cpu(), ids)
+    w = _beam_world(dev, cap=64, dim=16, M=6, bq=3, floats=False)
+    args, opt = w["args"], w["opt"]
+    kw = dict(ef=12, k=4, m_bits=64, eps=0.1, rho=1.0, max_iters=24,
+              use_filter=True, n_expand=1)
+    bad_codes = list(args)
+    bad_codes[5] = args[5].int()
+    with pytest.raises(TypeError):
+        fused_beam_search(*bad_codes, **kw)
+    with pytest.raises(ValueError):        # a tier lane missing
+        fused_beam_search(*args, resident=opt["resident"],
+                          qvecs=opt["qvecs"], **kw)
+    with pytest.raises(ValueError):        # more than the kernel holds
+        fused_beam_search(*args, **dict(kw, ef=300, max_iters=600))
+    with pytest.raises(ValueError):
+        fused_beam_search(*args, **dict(kw, ef=48, max_iters=96,
+                                        n_expand=40))
+    with pytest.raises(ValueError):        # mixed devices
+        fused_beam_search(*args[:-1], args[-1].cpu(), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 65, 128])
+def test_gather_l2_q8_cuda_kernel_matches_plain(d):
+    dev = _cuda()
+    rng = np.random.default_rng(d)
+    n, b, k = 5000, 300, 16
+    qt = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(
+        np.int8)).to(dev)
+    ids = torch.from_numpy(rng.integers(-1, n, (b, k)).astype(
+        np.int32)).to(dev)
+    for exact in (True, False):
+        if exact:
+            sc = 2.0 ** rng.integers(-3, 3, n)
+            q = rng.integers(-20, 21, (b, d))
+        else:
+            sc = rng.random(n) * 0.1
+            q = rng.normal(size=(b, d))
+        sc = torch.from_numpy(sc.astype(np.float32)).to(dev)
+        q = torch.from_numpy(q.astype(np.float32)).to(dev)
+        before = gather_l2_q8.launches
+        out = gather_l2_q8(q, qt, sc, ids)
+        torch.cuda.synchronize()
+        assert gather_l2_q8.launches == before + 1
+        assert torch.equal(out, gather_l2_q8_ref(q, qt, sc, ids))
+
+
+def _misaligned(t):
+    """A copy of `t` whose storage starts one element past an aligned
+    address, so the kernels take their scalar loads."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128])
+def test_gathers_give_the_same_bits_on_misaligned_rows(d):
+    """Where d % 4 == 0 the scalar loads sum a row in the float4 / char4
+    order, so a distance's bits depend on d alone."""
+    dev = _cuda()
+    q, table, ids = (torch.from_numpy(a).to(dev) for a in _gather_inputs(
+        d, False, seed=3, b=300, k=16, n=5000))
+    rng = np.random.default_rng(4)
+    qt = torch.from_numpy(rng.integers(-127, 128, (5000, d)).astype(
+        np.int8)).to(dev)
+    sc = torch.from_numpy((rng.random(5000) * 0.1).astype(np.float32)).to(dev)
+    f32 = gather_l2(q, table, ids)
+    q8 = gather_l2_q8(q, qt, sc, ids)
+    for qq, tt, qqt in ((_misaligned(q), table, qt),
+                        (q, _misaligned(table), _misaligned(qt))):
+        assert torch.equal(gather_l2(qq, tt, ids), f32)
+        assert torch.equal(gather_l2_q8(qq, qqt, sc, ids), q8)
+    assert torch.equal(f32, gather_l2_ref(q, table, ids))
+    assert torch.equal(q8, gather_l2_q8_ref(q, qt, sc, ids))
+
+
+def _beam_world(dev, *, cap, dim, M, bq, floats, seed=0):
+    """A random graph and its operands on the card: the snapshot view,
+    routable / returnable / resident lanes, a cold lane with power-of-two
+    scales, entries and their distances."""
+    rng = np.random.default_rng(seed)
+    if floats:
+        vecs = rng.normal(size=(cap, dim)).astype(np.float32)
+        qs = rng.normal(size=(bq, dim)).astype(np.float32)
+    else:
+        vecs = rng.integers(-8, 8, (cap, dim)).astype(np.float32)
+        qs = rng.integers(-8, 8, (bq, dim)).astype(np.float32)
+    proj = torch.from_numpy(rng.normal(size=(64, dim)).astype(np.float32))
+    live = rng.random(cap) >= 0.05
+    entries = rng.choice(np.flatnonzero(live), bq).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    v, q = t(vecs), t(qs)
+    args = [q, t(entries), t(((qs - vecs[entries]) ** 2).sum(1).astype(
+                np.float32)),
+            t(rng.integers(-1, cap, (cap, M)).astype(np.int32)), v,
+            simhash.encode(proj.to(dev), v), simhash.encode(proj.to(dev), q),
+            t(live), torch.sqrt((q * q).sum(1).double()).float(),
+            torch.sqrt((v * v).sum(1).double()).float().mean()]
+    opt = dict(returnable=t(live & (rng.random(cap) >= 0.1)),
+               resident=t(rng.random(cap) < 0.5),
+               qvecs=t(rng.integers(-127, 128, (cap, dim)).astype(np.int8)),
+               qscale=t((2.0 ** rng.integers(-2, 3, cap)).astype(np.float32)),
+               active=t(rng.random(bq) >= 0.1))
+    return dict(args=args, opt=opt)
+
+
+def _loop_route(args, opt, *, ef, k, m_bits, eps, rho, max_iters,
+                use_filter, n_expand, record_heat=True):
+    """The port's loop route over the same operands, fetching through the
+    gather kernels."""
+    qs, entries, entry_d, adj, vecs, codes, code_qs, live, qn, mn = args
+    if opt.get("resident") is not None:
+        res_ = opt["resident"]
+
+        def dist_fn(ids):
+            res = res_[ids.clamp_min(0).long()]
+            return torch.minimum(
+                gather_l2(qs, vecs, torch.where((ids >= 0) & res, ids, -1)),
+                gather_l2_q8(qs, opt["qvecs"], opt["qscale"],
+                             torch.where((ids >= 0) & ~res, ids, -1)))
+    else:
+        def dist_fn(ids):
+            return gather_l2(qs, vecs, ids)
+    r = traversal.beam_search(
+        qs, entries, entry_d, _snapshot_adj_fn(adj), dist_fn, codes, code_qs,
+        live, cap=adj.shape[0], ef=ef, k=k, m_bits=m_bits, eps=eps, rho=rho,
+        max_iters=max_iters, use_filter=use_filter, q_norm=qn, mean_norm=mn,
+        n_expand=n_expand, M=adj.shape[1], active=opt.get("active"),
+        returnable=opt.get("returnable"))
+    return (r.ids, r.dists, torch.stack(list(r.stats), 1), r.heat_nodes,
+            r.heat_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["lazy", "none", "tier", "active"])
+@pytest.mark.parametrize("rho,use_filter", [(1.0, True), (0.5, True),
+                                            (0.5, False)])
+@pytest.mark.parametrize("n_expand", [1, 4])
+def test_beam_cuda_kernel_matches_loop_route_and_plain(n_expand, rho,
+                                                       use_filter, lanes):
+    dev = _cuda()
+    for floats in (False, True):
+        w = _beam_world(dev, cap=3000, dim=65 if floats else 32, M=8,
+                        bq=200, floats=floats, seed=n_expand)
+        keep = {"lazy": ["returnable"], "none": [],
+                "tier": ["returnable", "resident", "qvecs", "qscale"],
+                "active": ["returnable", "active"]}[lanes]
+        opt = {n: w["opt"][n] for n in keep}
+        kw = dict(ef=24, k=5, m_bits=64, eps=0.1, rho=rho, max_iters=48,
+                  use_filter=use_filter, n_expand=n_expand)
+        before = fused_beam_search.launches
+        got = fused_beam_search(*w["args"], **opt, **kw)
+        torch.cuda.synchronize()
+        assert fused_beam_search.launches == before + 1
+        loop = _loop_route(w["args"], opt, **kw)
+        for name, a, b in zip(("ids", "dists", "stats", "heat_nodes",
+                               "heat_mask"), got, loop):
+            assert torch.equal(a, b), name
+        plain = beam_search_ref(*w["args"], **opt, **kw)
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+        assert int(got[2][:, 3].max()) > 1
+    off = fused_beam_search(*w["args"], **opt, **kw, record_heat=False)
+    for a, b in zip(off[:3], got[:3]):
+        assert torch.equal(a, b)
+    assert bool((off[3] == -1).all()) and not bool(off[4].any())

@@ -181,3 +181,77 @@ def test_port_index_recall_on_clustered_data():
     assert recall_at_k(res.ids, truth) >= 0.9
     idx.maintain("consolidate")
     assert recall_at_k(idx.search(qs).ids, truth) >= 0.9
+
+
+# the tier and fused-beam configuration: a narrower width, rerank inside
+# ef.  Every row holds 254 in its first coordinate, so its absmax is 254,
+# its cold-lane scale exactly 2 and every cold distance an exact integer
+# (the other coordinates quantize lossily, to even integers)
+TIER_JCFG = JCFG._replace(dim=24, tier=True, fused_beam=True, rerank=8)
+TIER_TCFG = hnsw.HNSWConfig(**{f: getattr(TIER_JCFG, f)
+                               for f in hnsw.HNSWConfig._fields})
+
+
+def _tier_ints(rng, shape):
+    x = rng.integers(-6, 7, shape).astype(np.float32)
+    x[..., 0] = 254.0
+    return x
+
+
+def test_index_fused_tier_slice_matches_reference():
+    """build -> search -> insert -> delete -> consolidate -> tier ->
+    search under tier=True, fused_beam=True: the LSM-probe searches run
+    the loop route with the int8 lane, the snapshot and padded ones the
+    fused route; the port's two routes also agree with each other."""
+    from repro.tier import TierPolicy as RefPolicy
+    from repro_torch.tier import TierPolicy
+
+    rng = np.random.default_rng(5)
+    base = _tier_ints(rng, (40, TIER_JCFG.dim))
+    jidx = ref.LSMVecIndex.build(TIER_JCFG, base, seed=0)
+    tidx = LSMVecIndex(TIER_TCFG, state=hnsw_state_from_numpy(
+        {k: np.asarray(v) for k, v in ref_lsm.dehydrate(jidx.state).items()},
+        "cpu"), device="cpu")
+    qs = _tier_ints(rng, (9, TIER_JCFG.dim))
+    assert_same_search(tidx, jidx, qs)
+    assert_same(tidx, jidx)
+
+    xs = _tier_ints(rng, (60, TIER_JCFG.dim))
+    draws = _ref_draws(jidx, len(xs), pad_to=40)
+    tidx._uniforms = lambda n: torch.from_numpy(draws.pop(0))
+    np.testing.assert_array_equal(tidx.insert_batch(xs, pad_to=40).ids,
+                                  jidx.insert_batch(xs, pad_to=40).ids)
+    dels = rng.choice(100, 12, replace=False)
+    tidx.delete_batch(dels, pad_to=8)
+    jidx.delete_batch(dels, pad_to=8)
+    assert_same_search(tidx, jidx, qs)
+    assert tidx.maintain("consolidate").reclaimed == \
+        jidx.maintain("consolidate").reclaimed
+    assert_same(tidx, jidx)
+
+    pol = dict(hot_frac=0.25, max_demote=TIER_JCFG.cap, max_promote=8)
+    rep = tidx.maintain("tier", policy=TierPolicy(**pol))
+    want = jidx.maintain("tier", policy=RefPolicy(**pol))
+    assert (rep.op, rep.applied, rep.demoted, rep.promoted) == (
+        want.op, want.applied, want.demoted, want.promoted)
+    assert rep.demoted > 0
+    assert_same(tidx, jidx)
+    cold = ~(tidx.state.hot | (tidx.state.levels > 0))
+    assert int((cold & (tidx.state.levels >= 0)).sum()) > 0
+    assert_same_search(tidx, jidx, qs)
+    assert_same(tidx, jidx)
+    res = tidx.search(qs, params=SearchParams(use_snapshot=True))
+    assert not np.isin(res.ids, dels).any()
+
+    # the port's loop route on a copy of the state gives the fused
+    # route's ids, dists and heat
+    loop = LSMVecIndex(TIER_TCFG._replace(fused_beam=False),
+                       state=hnsw_state_from_numpy(
+                           hnsw_state_to_numpy(tidx.state), "cpu"),
+                       device="cpu")
+    p = SearchParams(use_snapshot=True)
+    a, b = tidx.search(qs, params=p), loop.search(qs, params=p)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.dists, b.dists)
+    np.testing.assert_array_equal(tidx.state.heat.numpy(),
+                                  loop.state.heat.numpy())
