@@ -7,28 +7,40 @@ script exits non-zero and prints no result):
 
   env        nvidia-smi's card name and power limit, torch and CUDA versions
   build      compile the port's CUDA kernels from src/repro_torch/kernels/csrc
-  kernels    gather_l2, gather_l2_q8 and l2_distance against their plain
-             PyTorch versions on the card, at the main path's shapes;
-             median times, bounds, library yardsticks
+  kernels    gather_l2, gather_l2_q8, l2_distance and the three SimHash
+             entries (simhash_encode, collision_count and its gathered
+             form collision_count_rows) against their plain PyTorch
+             versions on the card, at the main path's shapes; median
+             times, bounds, library yardsticks
   main_path  SIFT1M's shape (d=128, f32, default HNSWConfig) with state
              allocated at cap = 1,048,576 on the card: build -> search (LSM
              probe, snapshot and fused routes) -> insert_batch 4 x 1,024 ->
              delete_batch 1% -> maintain("consolidate") -> search ->
              maintain("tier") -> tiered search (snapshot and fused routes),
              with recall@10 against brute_force_knn; kernel launch counts
-             are zeroed before and read after every step; the fused route's
-             ids equal the snapshot route's at every step
+             are zeroed before and read after every step (every search
+             launches simhash_encode, every loop-route search
+             collision_count_rows); the fused route's ids equal the
+             snapshot route's at every step
   beam       the beam megakernel over the built index's snapshot, for
              B in {1, 4} and rho in {1.0, 0.5}: bitwise against the loop
              route on the card, ids against its plain version; times
   parity     a small integer-valued run, card against the plain route on
              the CPU, search ids bitwise at every step, on the loop,
-             fused and tiered routes; the full-size queries re-run with
-             the kernels swapped for their plain versions, and on the CPU
-             from a copy of the final state
+             fused and tiered routes, then through an eager delete, a
+             compaction and a reordering (perm and every state field
+             too); the full-size queries re-run with the kernels swapped
+             for their plain versions, and on the CPU from a copy of the
+             final state, ids and dists bitwise
   profile    torch.profiler over one search on each route and one
              insert_batch: the device's busy share and the kernels that
              take its time
+  maintenance  on the final index: eager delete (Algorithm 2) of 1 % of
+             the live ids, maintain("compact"), maintain("reorder") on the
+             recorded heat, insert_batch of 1,024 after it; every route
+             searched after each, results checked against the searches
+             before (bitwise; through perm after the reordering), and
+             the LSM runs a lookup walks counted after each
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  It needs no network and one card, and
@@ -57,10 +69,15 @@ N_QUERIES, K = 1000, 10
 INSERT_BATCHES, INSERT_WIDTH = 4, 1024
 DELETE_FRACTION = 0.01
 TIER_POLICY = dict(hot_frac=0.25, max_demote=CAP, max_promote=64)
-# published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM rate
-# and the f32 rate outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM rate,
+# the f32 rate outside the tensor cores, and the f64 rate on the tensor
+# cores (DMMA, an IEEE f64 FMA per product; the f64 pipe outside them
+# does half of it)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 67e12
+RECALL_FLOOR = 0.15
+SPIN_CYCLES_PER_S = 2e9       # about the H100's SM clock under load
 
 
 def emit(obj) -> None:
@@ -76,15 +93,27 @@ def nvidia_smi() -> str:
 
 
 def median_ms(fn, args_list, warmup: int = 3) -> float:
-    """Median of per-launch CUDA-event times, cycling through inputs."""
+    """Median device time of one call of `fn`, cycling through inputs.
+
+    Each timed call is queued behind a spin kernel that lasts about twice
+    as long as the host takes to enqueue the call, so the CUDA events
+    bracket the device's work alone, not the Python and launch overhead
+    in front of it (which a small kernel's time would otherwise be).
+    `fn` must not wait for the device."""
     import torch
     for a in args_list[:warmup]:
         fn(*a)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args_list[0])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(2 * host_s * SPIN_CYCLES_PER_S) + 1_000_000
     times = []
     for a in args_list:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
         fn(*a)
         stop.record()
@@ -235,8 +264,9 @@ def phase_kernels(dev):
     l_flops = 2 * N_QUERIES * N_BASE * DIM
     l_bytes = 4 * (N_QUERIES * DIM + N_BASE * DIM + N_QUERIES * N_BASE)
     l_bound = 1e3 * max(l_bytes / HBM_BYTES_PER_S, l_flops / F32_FLOPS)
+    simhash_rows = _simhash_kernels(dev, g, checks)
     emit({"phase": "kernels", "checks": checks})
-    return {
+    return {**simhash_rows,
         "gather_l2": dict(
             name="gather_l2", route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
@@ -268,7 +298,124 @@ def phase_kernels(dev):
     }
 
 
-KERNEL_NAMES = ("gather_l2", "gather_l2_q8", "l2_distance", "beam")
+def _simhash_kernels(dev, g, checks):
+    """The three SimHash entries against their plain versions, bitwise on
+    float data: encode at the bulk build's call (131,072 rows, d = 128,
+    m = 64) and a ragged one; all pairs (1,000 query codes x 131,072);
+    gathered (1,000 x 16 ids over a cap-sized code table, with -1 and
+    out-of-range ids).  No single PyTorch call computes these functions,
+    so there is no library yardstick."""
+    import torch
+
+    from repro_torch.kernels.simhash.ops import (
+        collision_count,
+        collision_count_rows,
+        simhash_encode,
+    )
+    from repro_torch.kernels.simhash.ref import (
+        collision_count_ref,
+        collision_count_rows_ref,
+        simhash_encode_ref,
+    )
+
+    m_bits = 64
+    words = m_bits // 32
+    proj = torch.randn((m_bits, DIM), generator=g, device=dev)
+    x = torch.randn((N_BASE, DIM), generator=g, device=dev)
+    qx = torch.randn((N_QUERIES, DIM), generator=g, device=dev)
+    for xx, pp in ((x, proj), (qx, proj),
+                   (x[:3001, :65].contiguous(),
+                    torch.randn((128, 65), generator=g, device=dev))):
+        ok = torch.equal(simhash_encode(xx, pp), simhash_encode_ref(xx, pp))
+        checks.append(dict(kernel="simhash_encode", n=xx.shape[0],
+                           d=xx.shape[1], m_bits=pp.shape[0], ok=ok))
+        if not ok:
+            raise AssertionError(f"simhash_encode disagrees: {checks[-1]}")
+    codes_c = simhash_encode(x, proj)
+    codes_q = simhash_encode(qx, proj)
+    e_ms = median_ms(simhash_encode, [(x, proj)] * 10)
+    e_plain = median_ms(simhash_encode_ref, [(x, proj)] * 10)
+    e_bytes = 4 * (N_BASE * DIM + m_bits * DIM) + 8 * N_BASE * words
+    e_flops = 2 * N_BASE * m_bits * DIM
+
+    out = collision_count(codes_q, codes_c, m_bits)
+    ok = torch.equal(out, collision_count_ref(codes_q, codes_c, m_bits))
+    checks.append(dict(kernel="collision_count", q=N_QUERIES, n=N_BASE,
+                       m_bits=m_bits, ok=ok))
+    if not ok:
+        raise AssertionError(f"collision_count disagrees: {checks[-1]}")
+    del out
+    a_ms = median_ms(collision_count, [(codes_q, codes_c, m_bits)] * 10)
+    a_plain = median_ms(collision_count_ref,
+                        [(codes_q, codes_c, m_bits)] * 5, warmup=1)
+    a_bytes = 8 * (N_QUERIES + N_BASE) * words + 4 * N_QUERIES * N_BASE
+
+    table = torch.randint(0, 2 ** 32, (CAP, words), generator=g, device=dev)
+    id_sets = []
+    for _ in range(30):
+        ids = torch.randint(0, CAP, (N_QUERIES, 16), generator=g, device=dev)
+        ids[torch.rand((N_QUERIES, 16), generator=g, device=dev) < 0.1] = -1
+        id_sets.append(ids.int())
+    edge = id_sets[0].clone()
+    edge[:, :3] = torch.tensor([CAP - 1, CAP, CAP + 7], dtype=torch.int32,
+                               device=dev)
+    for ids in (id_sets[0], edge):
+        got = collision_count_rows(codes_q, table, ids, m_bits)
+        ok = torch.equal(got, collision_count_rows_ref(codes_q, table, ids,
+                                                       m_bits))
+        checks.append(dict(kernel="collision_count_rows", q=N_QUERIES,
+                           n=16, table=CAP, m_bits=m_bits, ok=ok))
+        if not ok:
+            raise AssertionError(f"collision_count_rows disagrees: "
+                                 f"{checks[-1]}")
+    r_ms = median_ms(lambda i: collision_count_rows(codes_q, table, i,
+                                                    m_bits),
+                     [(i,) for i in id_sets])
+    r_plain = median_ms(lambda i: collision_count_rows_ref(codes_q, table, i,
+                                                           m_bits),
+                        [(i,) for i in id_sets])
+    rows = float(np.median([int(torch.unique(i[i >= 0]).numel())
+                            for i in id_sets]))
+    r_bytes = 2 * 4 * N_QUERIES * 16 + 8 * words * (N_QUERIES + rows)
+    del table, id_sets
+    src = "src/repro_torch/kernels/csrc/simhash.cu"
+    return {
+        "simhash_encode": dict(
+            name="simhash_encode", route="cuda", source=src,
+            replaces="src/repro/kernels/simhash/kernel.py:38",
+            max_abs_err=0.0, ms=e_ms, plain_ms=e_plain,
+            bound_ms=1e3 * max(e_bytes / HBM_BYTES_PER_S,
+                               e_flops / F64_FLOPS),
+            bound_by=("operations" if e_flops / F64_FLOPS
+                      >= e_bytes / HBM_BYTES_PER_S else "bytes"),
+            library_ms=None,
+            shape=f"N={N_BASE} d={DIM} m_bits={m_bits} (f64 sums)"),
+        # one row for the TPU function, keyed by the counter of its
+        # gathered entry, the form on the main path; the all-pairs entry,
+        # the TPU function itself, is held and timed beside it
+        "collision_count_rows": dict(
+            name="collision_count", route="cuda", source=src,
+            replaces="src/repro/kernels/simhash/kernel.py:70",
+            max_abs_err=0.0, ms=r_ms, plain_ms=r_plain,
+            bound_ms=1e3 * r_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+            library_ms=None,
+            shape=f"collision_count_rows: Q={N_QUERIES} n=16 "
+                  f"table={CAP}x{words}",
+            entries={"collision_count_rows": "the numbers above",
+                     "collision_count": dict(
+                         ms=a_ms, plain_ms=a_plain,
+                         bound_ms=1e3 * a_bytes / HBM_BYTES_PER_S,
+                         bound_by="bytes", library_ms=None,
+                         shape=f"Q={N_QUERIES} N={N_BASE} W={words}")}),
+    }
+
+
+KERNEL_NAMES = ("gather_l2", "gather_l2_q8", "l2_distance", "beam",
+                "simhash_encode", "collision_count_rows", "collision_count")
+# the all-pairs collision count lies on no path of the system (the
+# reference's core runs only the plain form too); it is held against its
+# plain version in the kernels phase
+OFF_PATH = ("collision_count",)
 
 
 def launch_counters():
@@ -276,8 +423,14 @@ def launch_counters():
     from repro_torch.kernels.beam.ops import fused_beam_search
     from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
     from repro_torch.kernels.l2_distance.ops import l2_distance
+    from repro_torch.kernels.simhash.ops import (
+        collision_count,
+        collision_count_rows,
+        simhash_encode,
+    )
     return dict(zip(KERNEL_NAMES, (gather_l2, gather_l2_q8, l2_distance,
-                                   fused_beam_search)))
+                                   fused_beam_search, simhash_encode,
+                                   collision_count_rows, collision_count)))
 
 
 def counted(step, fn):
@@ -321,6 +474,39 @@ def check_result(res, queries, vectors, live) -> None:
         raise AssertionError("search distances disagree with the rows")
 
 
+def search_step(name, index, snap, queries, truth, vectors, live, dels=(),
+                id_map=None):
+    """One counted 1,000-query search, checked and emitted: no deleted id
+    returned, a well-formed result (`check_result`), the SimHash kernels
+    launched (the query encode on every route, the gathered collision
+    count on the loop routes), recall@10 against `truth` (ids mapped
+    through `id_map` first, where the index renumbered them)."""
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.index import recall_at_k
+    res, rec = counted(name, lambda: index.search(
+        queries, K, params=SearchParams(use_snapshot=snap)))
+    n_bad = int(np.isin(res.ids, dels).sum())
+    found = res.ids if id_map is None else np.where(
+        res.ids >= 0, id_map[np.maximum(res.ids, 0)], -1)
+    rec.update(qps=N_QUERIES / rec["seconds"],
+               recall_at_10=recall_at_k(found, truth),
+               deleted_returned=n_bad)
+    emit(rec)
+    if n_bad:
+        raise AssertionError(f"{n_bad} deleted ids returned")
+    check_result(res, queries, vectors, live)
+    # recall on this data is low at this size (0.1995 for the first
+    # search, the same on the CPU route): the floor only catches breakage
+    if rec["recall_at_10"] < RECALL_FLOOR:
+        raise AssertionError(f"recall too low: {rec}")
+    fused = index.cfg.fused_beam and snap
+    for kname in ("simhash_encode",) + (() if fused
+                                        else ("collision_count_rows",)):
+        if rec["launches"][kname] == 0:
+            raise AssertionError(f"{name} never launched {kname}")
+    return res, rec
+
+
 def view(idx, **flags):
     """An index over `idx`'s state under another configuration (the
     fused route, the tier lanes), its snapshot resolved up front as the
@@ -335,13 +521,8 @@ def view(idx, **flags):
 def phase_main_path(dev):
     import torch
 
-    from repro_torch.core.backend import SearchParams
     from repro_torch.core.hnsw import HNSWConfig
-    from repro_torch.core.index import (
-        LSMVecIndex,
-        brute_force_knn,
-        recall_at_k,
-    )
+    from repro_torch.core.index import LSMVecIndex, brute_force_knn
     from repro_torch.data.synth import make_clustered_vectors
     from repro_torch.tier import TierPolicy
 
@@ -367,17 +548,11 @@ def phase_main_path(dev):
         return out, rec
 
     def search(name, index, snap, truth, vectors, live, dels=()):
-        """One counted 1,000-query search, checked and emitted."""
-        res, rec = step(name, lambda: index.search(
-            queries, K, params=SearchParams(use_snapshot=snap)))
-        n_bad = int(np.isin(res.ids, dels).sum())
-        rec.update(qps=N_QUERIES / rec["seconds"],
-                   recall_at_10=recall_at_k(res.ids, truth),
-                   deleted_returned=n_bad)
-        emit(rec)
-        if n_bad:
-            raise AssertionError(f"{n_bad} deleted ids returned")
-        check_result(res, queries, vectors, live)
+        res, rec = search_step(name, index, snap, queries, truth, vectors,
+                               live, dels)
+        for kname, n in rec["launches"].items():
+            totals[kname] += n
+        steps.append(rec)
         return res, rec
 
     def search_routes(prefix, truth, vectors, live, dels=(), probe=True):
@@ -484,13 +659,8 @@ def phase_main_path(dev):
     if not same:
         raise AssertionError("tiered search: the fused route's ids differ "
                              "from the loop route's")
-    # recall on this data is low at this size (0.1995 for the first
-    # search, the same on the CPU route): the floor only catches breakage
-    for rec in steps:
-        if rec["step"].startswith("search") and rec["recall_at_10"] < 0.15:
-            raise AssertionError(f"recall too low: {rec}")
     for kname, n in totals.items():
-        if n == 0:
+        if n == 0 and kname not in OFF_PATH:
             raise AssertionError(f"main path never launched {kname}")
     emit({"phase": "main_path", "launches": totals,
           "peak_memory_gib_before_tier_step": peak_gib,
@@ -502,15 +672,20 @@ def phase_main_path(dev):
 
 def phase_parity(dev, idx, queries, truth_live, final):
     """Card against the plain route: a small integer-valued run on both
-    devices, on the loop, fused and tiered routes; the full-size queries
-    with the kernels swapped out on the card; and the final full-size
-    state copied to the CPU and searched there."""
+    devices, on the loop, fused and tiered routes, then through an eager
+    delete, a compaction and a reordering; the full-size queries with the
+    kernels swapped out on the card; and the final full-size state copied
+    to the CPU and searched there."""
     from repro_torch.bridge import hnsw_state_from_numpy, hnsw_state_to_numpy
-    from repro_torch.core import hnsw
+    from repro_torch.core import hnsw, simhash, traversal
     from repro_torch.core.backend import SearchParams
     from repro_torch.core.hnsw import HNSWConfig
     from repro_torch.core.index import LSMVecIndex, recall_at_k
     from repro_torch.kernels.gather_l2.ref import gather_l2_ref
+    from repro_torch.kernels.simhash.ref import (
+        collision_count_rows_ref,
+        simhash_encode_ref,
+    )
     from repro_torch.tier import TierPolicy
 
     cfg = HNSWConfig(cap=4096, dim=65)
@@ -525,65 +700,82 @@ def phase_parity(dev, idx, queries, truth_live, final):
         return x
     base, extra, qs = ints(2000), ints(512), ints(200)
     dels = rng.choice(2512, 25, replace=False)
+    # some of these were reclaimed by the consolidation: counted no-ops
+    eager_dels = rng.choice(2512, 25, replace=False)
 
     def run(device):
         out, fused_same = [], []
         t0 = time.perf_counter()
         small = LSMVecIndex.build(cfg, base, seed=7, device=device)
 
-        def routes(tier=False):
-            loop = view(small, tier=True) if tier else small
+        def routes(index, tier=False):
+            loop = view(index, tier=True) if tier else index
             res = [loop.search(qs, K, params=SearchParams(use_snapshot=snap))
                    for snap in (False, True)]
-            res.append(view(small, fused_beam=True, tier=tier).search(
+            res.append(view(index, fused_beam=True, tier=tier).search(
                 qs, K, params=SearchParams(use_snapshot=True)))
             out.extend((r.ids, r.dists) for r in res)
             fused_same.append(bool(np.array_equal(res[1].ids, res[2].ids)
                                    and np.array_equal(res[1].dists,
                                                       res[2].dists)))
-        routes()
+        routes(small)
         small.insert_batch(extra[:256])
         small.insert_batch(extra[256:])
-        routes()
+        routes(small)
         small.delete_batch(dels)
-        routes()
+        routes(small)
         small.maintain("consolidate")
-        routes()
+        routes(small)
         small.maintain("tier", policy=TierPolicy(
             hot_frac=0.25, max_demote=cfg.cap, max_promote=64))
-        routes(tier=True)
-        return out, hnsw_state_to_numpy(small.state), \
-            time.perf_counter() - t0, fused_same
+        routes(small, tier=True)
+        # eager delete, compaction and reordering on the same state
+        eager = view(small, lazy_delete=False)
+        eager.delete_batch(eager_dels)
+        routes(eager)
+        eager.maintain("compact")
+        routes(eager)
+        perm = eager.maintain("reorder", window=8, lam=1.0).perm
+        routes(eager)
+        return out, hnsw_state_to_numpy(eager.state), \
+            time.perf_counter() - t0, fused_same, perm
 
-    card, card_state, card_s, card_fused = run(dev)
-    cpu, cpu_state, cpu_s, cpu_fused = run("cpu")
+    card, card_state, card_s, card_fused, card_perm = run(dev)
+    cpu, cpu_state, cpu_s, cpu_fused, cpu_perm = run("cpu")
     mismatched = [i for i, (a, b) in enumerate(zip(card, cpu))
                   if not (np.array_equal(a[0], b[0])
                           and np.array_equal(a[1], b[1]))]
     state_diff = sorted(k for k in card_state
                         if not np.array_equal(card_state[k], cpu_state[k]))
+    same_perm = bool(np.array_equal(card_perm, cpu_perm))
     emit({"phase": "parity_small", "cap": cfg.cap, "dim": cfg.dim,
           "searches": len(card), "mismatched_searches": mismatched,
-          "state_fields_differing": state_diff,
+          "state_fields_differing": state_diff, "same_perm": same_perm,
           "fused_equals_snapshot": {"card": card_fused, "cpu": cpu_fused},
           "card_seconds": card_s, "cpu_seconds": cpu_s})
-    if mismatched or state_diff:
+    if mismatched or state_diff or not same_perm:
         raise AssertionError(f"card and CPU differ: searches {mismatched}, "
-                             f"state fields {state_diff}")
+                             f"state fields {state_diff}, perm {same_perm}")
     if not all(card_fused + cpu_fused):
         raise AssertionError("the fused route differs from the snapshot "
                              "route on the small run")
 
-    # full size: the final index's queries with both kernels swapped for
-    # their plain versions on the card
-    saved = hnsw.gather_l2
-    hnsw.gather_l2 = gather_l2_ref
+    # full size: the final index's queries with every kernel of the loop
+    # routes swapped for its plain version on the card
+    swaps = [(hnsw, "gather_l2", gather_l2_ref),
+             (traversal, "gather_l2", gather_l2_ref),
+             (traversal, "collision_count_rows", collision_count_rows_ref),
+             (simhash, "simhash_encode", simhash_encode_ref)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         plain = {snap: idx.search(queries, K,
                                   params=SearchParams(use_snapshot=snap))
                  for snap in (False, True)}
     finally:
-        hnsw.gather_l2 = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
     rows = []
     for snap, res in plain.items():
         kern = final[snap][0]
@@ -605,13 +797,11 @@ def phase_parity(dev, idx, queries, truth_live, final):
                          res.dists, final[False][0].dists)),
                      cpu_seconds=time.perf_counter() - t0))
     emit({"phase": "parity_full", "runs": rows})
-    # the card's plain routes sum rows in the kernels' order: the same ids
-    # and dists for every query; the CPU route the same ids (whether its
-    # dists match bit for bit is reported, not required)
+    # the plain versions sum rows in the kernels' order, and the upper
+    # descent measures through the gather too: the same ids and dists for
+    # every query, on the card's plain routes and on the CPU
     for row in rows:
-        on_card = row["route"] != "lsm_probe_on_cpu"
-        if row["queries_with_same_ids"] != 1.0 \
-                or (on_card and not row["same_dists"]):
+        if row["queries_with_same_ids"] != 1.0 or not row["same_dists"]:
             raise AssertionError(f"{row['route']} differs from the kernel "
                                  f"route: {row}")
 
@@ -774,6 +964,171 @@ def phase_profile(idx, queries, rows):
     emit({"phase": "profile", "runs": out})
 
 
+def _lookup_runs(index, queries) -> dict:
+    """One more LSM-probe search of `queries`, untimed and recording no
+    heat, with the tree's batch lookup wrapped: the lookups it made (keys
+    >= 0) and, per lookup, the non-empty runs a newest-first point lookup
+    walks (the memtable, then each level, up to the one that holds the
+    key; all of them for a key the tree lacks).  The port's `get_batch`
+    probes every run at once and charges one read (`n_probes`) by the
+    paper's cost model; this counts the runs the tree's layout makes a
+    lookup consult."""
+    import torch
+
+    from repro_torch.core import lsm
+    from repro_torch.core.backend import SearchParams
+    store = index.state.store
+    counts = [int(store.mem_count)] + [int(c) for c in store.level_counts]
+    tiers = [keys[:c] for keys, c in zip(
+        (store.mem_keys,) + tuple(store.level_keys), counts) if c]
+    total = [0, 0]
+    get_batch = lsm.get_batch
+
+    def walked(cfg, st, keys):
+        k = keys[keys >= 0].to(torch.int32)
+        found = torch.zeros_like(k, dtype=torch.bool)
+        runs = torch.zeros_like(k, dtype=torch.int64)
+        for tier in tiers:
+            runs += (~found).long()
+            found |= torch.isin(k, tier)
+        total[0] += k.numel()
+        total[1] += int(runs.sum())
+        return get_batch(cfg, st, keys)
+
+    lsm.get_batch = walked
+    try:
+        index.search(queries, K, params=SearchParams(record_heat=False))
+    finally:
+        lsm.get_batch = get_batch
+    return dict(lookups_per_query=total[0] / N_QUERIES,
+                runs_per_lookup=total[1] / max(total[0], 1),
+                lsm_run_entries=counts)
+
+
+def phase_maintenance(dev, idx, queries):
+    """The maintenance path on the final full-size index, each step timed
+    and followed by a search on every route (LSM probe, snapshot, fused):
+
+    1. eager delete (Algorithm 2) of 1 % of the live ids through a
+       `lazy_delete=False` view: n_live drops by exactly that count, no
+       deleted id comes back, the fused route equals the snapshot route;
+    2. maintain("compact"): every route returns the ids and dists of the
+       searches just before it, bitwise; the LSM runs a lookup walks
+       (`_lookup_runs`, after every step) fall to one;
+    3. maintain("reorder") on the heat the earlier searches recorded:
+       perm is a permutation of the allocated ids with the dead last, the
+       layout score rises, and every route returns perm[ids before] with
+       the same dists, bitwise (every tie-break in the port is by
+       position, not by id);
+    4. insert_batch of 1,024 rows on the reordered index, then search.
+    """
+    import torch
+
+    from repro_torch.core import lsm, reorder
+    from repro_torch.core.index import brute_force_knn
+    from repro_torch.data.synth import make_clustered_vectors
+
+    eager = view(idx, lazy_delete=False)
+    n = eager._count
+    vectors = eager.state.vectors[:n].cpu().numpy()
+    live = (eager.state.levels[:n] >= 0).cpu().numpy()
+    rng = np.random.default_rng(9)
+    dels = rng.choice(np.flatnonzero(live), int(DELETE_FRACTION * live.sum()),
+                      replace=False)
+    out = {}
+
+    def routes(tag, index, truth, vecs, lv, id_map=None):
+        got = {}
+        for route, flags, snap in (("lsm_probe", {}, False),
+                                   ("snapshot", {}, True),
+                                   ("fused", {"fused_beam": True}, True)):
+            ix = view(index, **flags) if flags else index
+            if snap:
+                index.snapshot()
+            res, rec = search_step(f"{tag}_{route}", ix, snap, queries, truth,
+                                   vecs, lv, dels, id_map)
+            if route == "lsm_probe":
+                rec = dict(step=f"{tag}_lsm_runs",
+                           **_lookup_runs(index, queries))
+                emit(rec)
+                out[f"{tag}_lsm"] = rec
+            got[route] = res
+        if not (np.array_equal(got["fused"].ids, got["snapshot"].ids)
+                and np.array_equal(got["fused"].dists, got["snapshot"].dists)):
+            raise AssertionError(f"{tag}: the fused route differs from the "
+                                 "snapshot route")
+        return got
+
+    size0 = eager.size
+    _, rec = counted("eager_delete", lambda: eager.delete_batch(dels))
+    rec.update(deleted=len(dels), deletes_per_s=len(dels) / rec["seconds"],
+               n_live_before=size0, n_live_after=eager.size)
+    emit(rec)
+    if size0 - eager.size != len(dels):
+        raise AssertionError(f"eager delete: n_live {size0} -> {eager.size} "
+                             f"for {len(dels)} ids")
+    live[dels] = False
+    truth = brute_force_knn(vectors, queries, K, live=live)
+    before = routes("after_eager_delete", eager, truth, vectors, live)
+
+    _, rec = counted("compact", lambda: eager.maintain("compact"))
+    emit(rec)
+    after = routes("after_compact", eager, truth, vectors, live)
+    for route, res in after.items():
+        if not (np.array_equal(res.ids, before[route].ids)
+                and np.array_equal(res.dists, before[route].dists)):
+            raise AssertionError(f"compaction changed the {route} route's "
+                                 "results")
+
+    lv8, rows = lsm.resolve_all(eager.cfg.lsm_cfg, eager.state.store, n)
+    rows = rows.cpu().numpy()
+    heat = eager.state.heat[:n].cpu().numpy()
+    rep, rec = counted("reorder", lambda: eager.maintain(
+        "reorder", window=8, lam=1.0))
+    perm = rep.perm
+    score0 = reorder.layout_score(rows, np.arange(n), heat)
+    score1 = reorder.layout_score(rows, perm, heat)
+    # gorder's live set: a live row in the tree and a level
+    placed = (lv8.cpu().numpy() > 0) & live
+    n_placed = int(placed.sum())
+    rec.update(gorder_seconds=rep.detail["gorder_seconds"], rows=n,
+               live_rows=n_placed, layout_score_before=score0,
+               layout_score_after=score1)
+    emit(rec)
+    if not (np.array_equal(np.sort(perm), np.arange(n))
+            and (perm[placed] < n_placed).all()
+            and (perm[~placed] >= n_placed).all()):
+        raise AssertionError("reorder: perm is not a permutation with the "
+                             "dead nodes last")
+    if not score1 > score0:
+        raise AssertionError(f"reorder: layout score {score0} -> {score1}")
+    inv = np.argsort(perm)
+    dels = perm[dels]                   # the deleted ids, renamed
+    moved = routes("after_reorder", eager, truth, vectors[inv], live[inv],
+                   id_map=inv)
+    for route, res in moved.items():
+        want = np.where(after[route].ids >= 0,
+                        perm[np.maximum(after[route].ids, 0)], -1)
+        if not (np.array_equal(res.ids, want)
+                and np.array_equal(res.dists, after[route].dists)):
+            raise AssertionError(f"reordering changed the {route} route's "
+                                 "results beyond renaming")
+
+    rows_new = make_clustered_vectors(INSERT_WIDTH, DIM, seed=4)
+    res, rec = counted("insert_batch_after_reorder",
+                       lambda: eager.insert_batch(rows_new))
+    rec.update(inserts_per_s=INSERT_WIDTH / rec["seconds"])
+    emit(rec)
+    if not np.array_equal(res.ids, np.arange(n, n + INSERT_WIDTH)):
+        raise AssertionError("insert_batch after reorder returned "
+                             "unexpected ids")
+    vecs2 = eager.state.vectors[:n + INSERT_WIDTH].cpu().numpy()
+    live2 = (eager.state.levels[:n + INSERT_WIDTH] >= 0).cpu().numpy()
+    truth2 = brute_force_knn(vecs2, queries, K, live=live2)
+    routes("after_insert_reordered", eager, truth2, vecs2, live2)
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -819,14 +1174,18 @@ def main() -> int:
     from repro_torch.data.synth import make_clustered_vectors
     phase_profile(idx, queries,
                   make_clustered_vectors(256, DIM, seed=2))
+    phase_maintenance(dev, idx, queries)
 
     for name, row in kernels.items():
         row["launches"] = totals[name]
+    kernels["collision_count_rows"]["entries"]["collision_count"][
+        "launches"] = totals["collision_count"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row[k] for k in keys} for row in kernels.values()]})
+    emit({"kernels": [{k: row[k] for k in keys + ("entries",) if k in row}
+                      for row in kernels.values()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 """Hybrid memory/disk hierarchical proximity graph (paper §3.2), on tensors.
 
-The counterpart of `repro.core.hnsw` for the lazy-delete configuration,
-with the tiered store (`tier`) and the fused beam megakernel
-(`fused_beam`) as options.  Upper HNSW layers are
+The counterpart of `repro.core.hnsw`: lazy (tombstone + consolidate) or
+eager (Algorithm 2) deletion, with the tiered store (`tier`) and the
+fused beam megakernel (`fused_beam`) as options.  Upper HNSW layers are
 memory-resident dense adjacency tensors; the bottom layer lives in the
 LSM tree, so every structural update is an out-of-place LSM write.
 Vectors sit in one id-sorted tensor fetched by offset through the
@@ -59,8 +59,8 @@ class HNSWConfig(NamedTuple):
     n_expand: int = 1        # query-path multi-expansion width (B); 1 = classic
     batch_expand: int = 4    # multi-expansion width for insert_batch searches
     #: two-phase lazy deletion: delete only sets a tombstone bit and
-    #: `consolidate` splices tombstones out later.  The eager Algorithm-2
-    #: route (False) is not ported yet: `delete_batch` raises on it.
+    #: `consolidate` splices tombstones out later.  False: the eager
+    #: Algorithm-2 route relinks each deleted node's neighbors at once.
     lazy_delete: bool = True
     #: two-lane tiered store: cold nodes answer beam expansions from the
     #: int8 quantized lane and the final candidate window is reranked
@@ -313,8 +313,9 @@ def _upper_adj_fn(adj_u: torch.Tensor):
 
 
 def _point_dist(state: HNSWState, qs: torch.Tensor, nodes: torch.Tensor):
-    v = state.vectors[nodes.clamp_min(0).long()]
-    return ((qs - v) ** 2).sum(-1)
+    """Squared L2 from each query row to its node (ids >= 0), through the
+    gather kernel: the same bits on every device."""
+    return _dist_fn(state, qs)(nodes.to(_I32).reshape(-1, 1))[:, 0]
 
 
 def _descend_upper(cfg: HNSWConfig, state: HNSWState, qs: torch.Tensor):
@@ -767,19 +768,214 @@ def insert_batch(cfg: HNSWConfig, state: HNSWState, xs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# lazy deletion + consolidation
+# delete: lazy tombstones, or the eager Algorithm-2 relink
 # ---------------------------------------------------------------------------
 
 def delete_batch(cfg: HNSWConfig, state: HNSWState,
                  ids: torch.Tensor) -> Tuple[HNSWState, IOStats]:
-    """Delete a batch of node ids: the lazy route (`tombstone_batch`).
+    """Delete a batch of node ids: the lazy route (`tombstone_batch`)
+    under `cfg.lazy_delete`, else the eager Algorithm-2 relink.
     Negative ids are masked no-ops; absent or already-deleted ids are
     counted in `n_delete_noops`."""
-    if not cfg.lazy_delete:
-        raise NotImplementedError(
-            "the eager Algorithm-2 delete (lazy_delete=False) is not "
-            "ported yet")
-    return tombstone_batch(cfg, state, ids)
+    if cfg.lazy_delete:
+        return tombstone_batch(cfg, state, ids)
+    return _delete_batch_eager(cfg, state, ids)
+
+
+def delete(cfg: HNSWConfig, state: HNSWState,
+           node) -> Tuple[HNSWState, IOStats]:
+    """Delete one node: a tombstone under `cfg.lazy_delete`, else the
+    paper's Algorithm-2 local relink.  Deleting an absent or already
+    deleted id is a counted no-op either way."""
+    if cfg.lazy_delete:
+        return tombstone_batch(cfg, state, torch.as_tensor(
+            node, dtype=_I32, device=state.levels.device).reshape(1))
+    return _delete_eager(cfg, state, node)
+
+
+def _relink(state: HNSWState, cand: torch.Tensor, nbr: torch.Tensor,
+            i: int, min_level: int, m: int):
+    """Algorithm-2 relink rows of the deleted node i's neighbors `nbr`:
+    each row is the best m of the shared 2-hop pool `cand` by distance to
+    its neighbor, skipping -1, i, the neighbor itself, nodes below
+    `min_level` and tombstoned nodes, with repeated ids at +inf (the
+    reference's `_topm`: `lax.top_k`, ties to the lower index, -1 pads).
+    Every row derives from the same pool, read before any write, so the
+    rows are independent.  Returns (rows [len(nbr), m], dists
+    [len(nbr), C])."""
+    cs = cand.clamp_min(0).long()
+    diff = state.vectors[cs][None, :, :] \
+        - state.vectors[nbr.clamp_min(0).long()][:, None, :]
+    d = (diff * diff).sum(-1)
+    bad = (cand[None, :] < 0) | (cand[None, :] == i) \
+        | (cand[None, :] == nbr[:, None]) \
+        | (state.levels[cs][None, :] < min_level) \
+        | state.tombstone[cs][None, :]
+    d = torch.where(bad, INF, d)
+    d = _dedup_to_inf(torch.where(bad, -1, cand[None, :]), d)
+    top_d, order = stable_topk_asc(d, m)
+    return torch.where(torch.isfinite(top_d), cand[order], -1), d
+
+
+def _relink_upper_rows(cfg: HNSWConfig, state: HNSWState, u: int,
+                       i: int) -> None:
+    """Algorithm-2 relink of node i's layer-u neighbors, in place on
+    `state.upper_adj[u]`, for a node that reaches layer u: each neighbor
+    row is rebuilt from the 2-hop pool of i's row, then i's row is
+    cleared."""
+    adj_u = state.upper_adj[u]
+    nbr = adj_u[i].clone()                                    # [M_up]
+    nbr_safe = nbr.clamp_min(0).long()
+    cand = torch.cat([adj_u[nbr_safe].reshape(-1), nbr])      # 2-hop pool
+    new_rows, _ = _relink(state, cand, nbr, i, u + 1, cfg.M_up)
+    _set_rows(adj_u, nbr_safe, new_rows, nbr >= 0)
+    adj_u[i] = -1
+
+
+def _bottom_relink(cfg: HNSWConfig, state: HNSWState, rows_of, i: int,
+                   n1: torch.Tensor):
+    """Algorithm-2 relink of the bottom-layer neighbors `n1` of node i,
+    whose rows `rows_of(ids)` returns.  Returns (write keys: the dead key
+    `cap` for -1 slots, new rows, number of finite candidate
+    distances)."""
+    n1_safe = n1.clamp_min(0)
+    cand = torch.cat([rows_of(n1_safe).reshape(-1), n1])     # C = M*M + M
+    new_rows, d = _relink(state, cand, n1, i, 0, cfg.M)
+    keys = torch.where(n1 >= 0, n1_safe, cfg.cap)
+    return keys, new_rows, torch.isfinite(d).sum().to(_I32)
+
+
+def _delete_ids(cfg: HNSWConfig, ids) -> list:
+    ids_h = torch.as_tensor(ids).reshape(-1).tolist()
+    if any(i >= cfg.cap for i in ids_h):
+        raise ValueError(f"delete: ids must be < cap {cfg.cap}")
+    return ids_h
+
+
+def _delete_eager(cfg: HNSWConfig, state: HNSWState,
+                  node) -> Tuple[HNSWState, IOStats]:
+    """Delete one node with local neighbor relinking (Algorithm 2): the
+    upper layers in place, then the bottom layer as LSM writes — the
+    relinked neighbor rows (an absent node's -1 slots land on the dead
+    key `cap`), then i's tombstone."""
+    (i,) = _delete_ids(cfg, [node])
+    if i < 0:
+        raise ValueError(f"delete: node id {i} is negative")
+    dev = state.levels.device
+    lvl = int(state.levels[i])
+    was_live = lvl >= 0
+    for u in range(min(max(lvl, 0), cfg.num_upper)):
+        _relink_upper_rows(cfg, state, u, i)
+
+    found, n1, _ = lsm.get(cfg.lsm_cfg, state.store, i)
+    n1 = torch.where(found & was_live, n1, -1)
+
+    def rows_of(ids):
+        return lsm.get_batch(cfg.lsm_cfg, state.store, ids)[1]
+    keys, new_rows, n_vec = _bottom_relink(cfg, state, rows_of, i, n1)
+    store = lsm.puts(cfg.lsm_cfg, state.store, keys, new_rows)
+    store = lsm.delete(cfg.lsm_cfg, store, i if was_live else cfg.cap)
+
+    if not was_live:
+        return state._replace(
+            store=store, n_delete_noops=state.n_delete_noops + 1), \
+            IOStats.zero(dev)
+    state.levels[i] = -1
+    entry = state.entry
+    if int(entry) == i:
+        # highest remaining level; argmax breaks ties by the lowest id
+        entry = state.levels.argmax().to(_I32)
+    state = state._replace(
+        store=store, entry=entry,
+        max_level=state.levels[entry.clamp_min(0).long()].clamp_min(0),
+        n_live=state.n_live - 1)
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    return state, IOStats(torch.tensor(1 + cfg.M, dtype=_I32, device=dev),
+                          n_vec, zero, zero)
+
+
+def _delete_batch_eager(cfg: HNSWConfig, state: HNSWState,
+                        ids) -> Tuple[HNSWState, IOStats]:
+    """Eager batched delete — Algorithm 2 through an overlay.
+
+    As `insert_batch`'s phase B: the per-item relinks read and stage
+    bottom-layer rows in a dense newest-wins overlay seeded from one
+    `lsm.resolve_all` of the pre-batch tree, and one bulk `lsm.puts`
+    afterwards applies every staged key's final row and liveness, in the
+    reference's order ([relinked neighbors, i] per item; the dead key
+    `cap` for -1 slots and for no-op items).  The upper layers relink in
+    place.  Negative ids are masked no-ops.
+
+    The ids' levels, the entry and its level are mirrored on the host,
+    so an item costs no device read unless it deletes the entry.
+    """
+    M, dead = cfg.M, cfg.cap
+    dev = state.levels.device
+    ids_h = _delete_ids(cfg, ids)
+    if not ids_h:
+        return state, IOStats.zero(dev)
+    snap_live, snap_rows = lsm.resolve_all(cfg.lsm_cfg, state.store, cfg.cap)
+    # spare slot `cap` absorbs masked writes, as in insert_batch
+    dlive = torch.cat([snap_live, torch.zeros(1, dtype=torch.int8,
+                                              device=dev)])
+    drows = torch.cat([snap_rows, torch.full((1, M), lsm.EMPTY, dtype=_I32,
+                                             device=dev)])
+    safe_h = [max(i, 0) for i in ids_h]
+    level_of = dict(zip(safe_h, state.levels[torch.tensor(
+        safe_h, device=dev)].tolist()))
+    entry = int(state.entry)
+    entry_level = int(state.levels[max(entry, 0)])
+    n_live, n_noops = int(state.n_live), int(state.n_delete_noops)
+    max_level = int(state.max_level)
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    n_done, n_vec = 0, zero
+    w_keys = []
+
+    def rows_of(n1_safe):
+        return drows[n1_safe.long()]
+
+    for i in ids_h:
+        was_live = i >= 0 and level_of[i] >= 0
+        if not was_live:
+            # every staged row of an absent id lands on the dead key, the
+            # last one its tombstone
+            n_noops += i >= 0
+            drows[dead] = lsm.EMPTY
+            dlive[dead] = 0
+            w_keys.append(torch.full((M + 1,), dead, dtype=_I32, device=dev))
+            continue
+        for u in range(min(level_of[i], cfg.num_upper)):
+            _relink_upper_rows(cfg, state, u, i)
+        n1 = torch.where(dlive[i] > 0, drows[i], -1)
+        keys, new_rows, n_fin = _bottom_relink(cfg, state, rows_of, i, n1)
+        drows[keys.long()] = new_rows
+        dlive[keys.long()] = 1
+        drows[i] = lsm.EMPTY
+        dlive[i] = 0
+        w_keys.append(torch.cat([keys, torch.tensor([i], dtype=_I32,
+                                                    device=dev)]))
+        state.levels[i] = -1
+        level_of[i] = -1
+        if entry == i:
+            # highest remaining level; argmax breaks ties by the lowest id
+            entry = int(state.levels.argmax())
+            entry_level = int(state.levels[entry])
+        max_level = max(entry_level, 0)
+        n_live -= 1
+        n_done += 1
+        n_vec = n_vec + n_fin
+
+    keys = torch.cat(w_keys).long()
+    state = state._replace(
+        store=lsm.puts(cfg.lsm_cfg, state.store, keys, drows[keys],
+                       dlive[keys]),
+        entry=torch.tensor(entry, dtype=_I32, device=dev),
+        max_level=torch.tensor(max_level, dtype=_I32, device=dev),
+        n_live=torch.tensor(n_live, dtype=_I32, device=dev),
+        n_delete_noops=torch.tensor(n_noops, dtype=_I32, device=dev))
+    return state, IOStats(
+        torch.tensor(n_done * (1 + M), dtype=_I32, device=dev), n_vec,
+        zero, zero)
 
 
 def tombstone_batch(cfg: HNSWConfig, state: HNSWState,

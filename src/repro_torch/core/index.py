@@ -2,8 +2,9 @@
 
 Wraps the functional core (hnsw/lsm/traversal/simhash) behind the
 interface a vector database exposes: build, insert, delete, search,
-consolidation, plus the I/O statistics the paper reports, and the
-ground-truth helpers `brute_force_knn` / `recall_at_k`.
+maintenance (consolidation, compaction, reordering, tiering), plus the
+I/O statistics the paper reports, and the ground-truth helpers
+`brute_force_knn` / `recall_at_k`.
 
 The index lives on one device, CUDA unless the caller passes
 ``device="cpu"``.  Its randomness (SimHash projections, level draws)
@@ -13,13 +14,14 @@ gives the same index on either device.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve
-from repro_torch.core import hnsw, lsm
+from repro_torch.core import hnsw, lsm, reorder
 from repro_torch.core.backend import (
     MaintenanceReport,
     SearchParams,
@@ -177,11 +179,21 @@ class LSMVecIndex:
         return UpdateResult(ids=np.asarray(ids, np.int64),
                             n_applied=len(ids))
 
+    def delete(self, node_id: int) -> None:
+        """Delete one id.  Lazy (the default) sets the tombstone bit only,
+        so the cached read snapshot stays valid; eager relinks the
+        neighbors (Algorithm 2), a graph write."""
+        self.state, st = hnsw.delete(self.cfg, self.state, node_id)
+        if not self.cfg.lazy_delete:
+            self._version += 1
+        self.io_stats = self.io_stats + st
+
     def delete_batch(self, ids, *, pad_to: Optional[int] = None
                      ) -> UpdateResult:
-        """Delete a batch of ids (lazy tombstones: no graph write, so the
-        cached read snapshot stays valid).  `pad_to` pads with -1, a
-        masked no-op."""
+        """Delete a batch of ids: lazy tombstones (no graph write, so the
+        cached read snapshot stays valid) or, under `lazy_delete=False`,
+        the eager Algorithm-2 relink.  `pad_to` pads with -1, a masked
+        no-op."""
         ids = np.atleast_1d(np.asarray(ids, np.int32))
         if len(ids) == 0:
             return UpdateResult(ids=np.zeros((0,), np.int64), n_applied=0)
@@ -192,6 +204,8 @@ class LSMVecIndex:
             padded[:len(chunk)] = chunk
             self.state, st = hnsw.delete_batch(
                 self.cfg, self.state, torch.from_numpy(padded).to(self.device))
+            if not self.cfg.lazy_delete:
+                self._version += 1
             self.io_stats = self.io_stats + st
         return UpdateResult(ids=ids.astype(np.int64),
                             n_applied=int((ids >= 0).sum()))
@@ -252,18 +266,56 @@ class LSMVecIndex:
     # -- maintenance ----------------------------------------------------------
 
     def maintain(self, op: str, **params) -> MaintenanceReport:
-        """Maintenance entry point; this port runs "consolidate"
-        (`ratio=`: skip below that tombstone share) and "tier"
-        (`policy=`: a `TierPolicy`)."""
+        """Maintenance entry point.  ops: "consolidate" (`ratio=`: skip
+        below that tombstone share), "compact" (major LSM compaction),
+        "reorder" (`window=`, `lam=`: connectivity-aware relayout, §3.4)
+        and "tier" (`policy=`: a `TierPolicy`)."""
         if op == "consolidate":
             n = self.consolidate(ratio=params.get("ratio"))
             return MaintenanceReport(op=op, applied=n > 0, reclaimed=n)
+        if op == "compact":
+            self.compact()
+            return MaintenanceReport(op=op, applied=True)
+        if op == "reorder":
+            perm, secs = self._reorder(window=int(params.get("window", 8)),
+                                       lam=float(params.get("lam", 1.0)))
+            return MaintenanceReport(op=op, applied=True, perm=perm,
+                                     detail={"gorder_seconds": secs})
         if op == "tier":
             moved = self.tier_maintain(params["policy"])
             return MaintenanceReport(
                 op=op, applied=(moved["demoted"] + moved["promoted"]) > 0,
                 demoted=moved["demoted"], promoted=moved["promoted"])
-        raise ValueError(f"unknown or unported maintenance op {op!r}")
+        raise ValueError(f"unknown maintenance op {op!r}")
+
+    def compact(self) -> None:
+        """Major LSM compaction: every run merged into the last level."""
+        self.state = self.state._replace(
+            store=lsm.compact_all(self.cfg.lsm_cfg, self.state.store))
+        self._version += 1
+
+    def reorder(self, *, window: int = 8, lam: float = 1.0) -> np.ndarray:
+        """Connectivity-aware relayout (§3.4), applied at a major
+        compaction: the gorder placement of the allocated ids on the host
+        from the bottom-layer rows and the recorded edge heat, then every
+        lane renumbered on the device.  Returns perm (perm[old] = new);
+        internal ids change, so callers map ids they hold through it."""
+        return self._reorder(window=window, lam=lam)[0]
+
+    def _reorder(self, *, window: int, lam: float):
+        """`reorder`, returning (perm, seconds of the host placement)."""
+        n = self._count
+        live, rows = lsm.resolve_all(self.cfg.lsm_cfg, self.state.store, n)
+        live_np = (live.cpu().numpy() > 0) \
+            & (self.state.levels[:n].cpu().numpy() >= 0)
+        t0 = time.perf_counter()
+        perm = reorder.gorder_permutation(
+            rows.cpu().numpy(), self.state.heat[:n].cpu().numpy(),
+            window=window, lam=lam, live=live_np)
+        secs = time.perf_counter() - t0
+        self.state = reorder.apply_permutation(self.cfg, self.state, perm)
+        self._version += 1
+        return perm, secs
 
     def tier_maintain(self, policy: "tier_policy.TierPolicy") -> dict:
         """One batched demote/promote pass of the tier policy.  Returns

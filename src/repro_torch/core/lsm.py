@@ -382,6 +382,54 @@ def rebuild_from_dense(cfg: LSMConfig, st: LSMState, keep: torch.Tensor,
                           n_compactions=st.n_compactions + 1)
 
 
+def compact_all(cfg: LSMConfig, st: LSMState) -> LSMState:
+    """Force-merge everything into the last level (major compaction):
+    flush the memtable, then merge each level into the next, dropping
+    tombstones at the last."""
+    st = flush(cfg, st)
+    lk = list(st.level_keys)
+    lv = list(st.level_vals)
+    ll = list(st.level_live)
+    lc = list(st.level_counts)
+    for i in range(cfg.num_levels - 1):
+        last = (i + 1 == cfg.num_levels - 1)
+        lk[i + 1], lv[i + 1], ll[i + 1], lc[i + 1] = _merge_runs(
+            lk[i], lv[i], ll[i], lk[i + 1], lv[i + 1], ll[i + 1],
+            cfg.level_caps[i + 1], drop_tombstones=last)
+        lk[i] = torch.full_like(lk[i], PAD_KEY)
+        lv[i] = torch.full_like(lv[i], EMPTY)
+        ll[i] = torch.zeros_like(ll[i])
+        lc[i] = torch.zeros_like(lc[i])
+    return st._replace(level_keys=tuple(lk), level_vals=tuple(lv),
+                       level_live=tuple(ll), level_counts=tuple(lc),
+                       n_compactions=st.n_compactions + 1)
+
+
+def remap_ids(cfg: LSMConfig, st: LSMState, perm_map) -> LSMState:
+    """Rename node ids everywhere: key k -> perm_map[k], and the same for
+    row entries (EMPTY entries stay).  Runs a major compaction first, so
+    only the last level needs remapping (connectivity-aware reordering,
+    §3.4, relabels nodes at compaction).
+
+    Ids past the end of `perm_map` read its last entry, as the
+    reference's clamped gather does: the dead key `cap` that batched
+    updates write to becomes `cap - 1`."""
+    st = compact_all(cfg, st)
+    device = st.mem_keys.device
+    perm_map = torch.as_tensor(perm_map, device=device).to(_I32)
+    top = perm_map.shape[0] - 1
+    keys = st.level_keys[-1]
+    vals = st.level_vals[-1]
+    is_real = keys != PAD_KEY
+    safe_keys = torch.where(is_real, keys, 0).clamp_max(top).long()
+    new_keys = torch.where(is_real, perm_map[safe_keys], PAD_KEY)
+    safe_vals = torch.where(vals >= 0, vals, 0).clamp_max(top).long()
+    new_vals = torch.where(vals >= 0, perm_map[safe_vals], vals)
+    order = torch.sort(new_keys, stable=True).indices
+    return _with_last_level(st, new_keys[order], new_vals[order],
+                            st.level_live[-1][order], st.level_counts[-1])
+
+
 def resolve_all(cfg: LSMConfig, st: LSMState, id_space: int):
     """Dense newest-wins view: (live int8[id_space], rows int32[id_space, M]).
 

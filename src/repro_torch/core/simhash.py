@@ -6,16 +6,16 @@ Filter (Eq. 6):     evaluate u iff #Col(q,u) >= T_eps,
                     T_eps = m (1 - theta_delta / pi) - sqrt(m ln(1/eps) / 2)
 
 Codes pack 32 projections per word in the reference's order (bit i of
-word w is projection 32w+i).  A word is held as the int64 value of the
-reference's uint32 word: PyTorch has no popcount and no unsigned right
-shift, and in int64 a 32-bit word's bits never reach the sign, so the
-SWAR bit count below is exact.
+word w is projection 32w+i), each word held as the int64 value of the
+reference's uint32 word.  Encoding runs through the `simhash_encode`
+kernel (`kernels/simhash`), whose signs are taken in f64 so that the
+card and the CPU agree; the traversal's prefilter counts collisions
+through `collision_count_rows`.  `collisions` is the plain broadcast
+form, for the filter below and the beam kernel's plain version.
 
-The projection signs and the arccos of the threshold are computed in
-f64 and the arccos rounded once to f32, so the bits and thresholds come
-out the same on the CPU and on the card (an f32 dot product near zero,
-or a last-place difference in an f32 arccos, would otherwise flip a
-decision between the two).
+The arccos of the threshold is computed in f64 and rounded once to
+f32, so thresholds come out the same on the CPU and on the card (a
+last-place difference in an f32 arccos would flip a decision).
 """
 
 from __future__ import annotations
@@ -24,39 +24,19 @@ import math
 
 import torch
 
-_M1 = 0x55555555
-_M2 = 0x33333333
-_M4 = 0x0F0F0F0F
+from repro_torch.kernels.simhash.ops import simhash_encode
+from repro_torch.kernels.simhash.ref import (  # noqa: F401 (re-exported)
+    collisions,
+    popcount,
+)
 
 
 def encode(proj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Pack sgn(x @ a_i) into words.  proj f32[m, dim], x [..., dim] ->
     int64[..., m/32], each word in [0, 2^32)."""
-    m = proj.shape[0]
-    if m % 32 != 0:
-        raise ValueError("m_bits must be a multiple of 32 for word packing")
-    bits = (x.double() @ proj.double().T) >= 0.0            # [..., m]
-    bits = bits.reshape(*bits.shape[:-1], m // 32, 32).to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    return (bits << shifts).sum(-1)
-
-
-def popcount(words: torch.Tensor) -> torch.Tensor:
-    """Set bits of each 32-bit word held in an int64 tensor (SWAR)."""
-    w = words - ((words >> 1) & _M1)
-    w = (w & _M2) + ((w >> 2) & _M2)
-    w = (w + (w >> 4)) & _M4
-    return ((w * 0x01010101) >> 24) & 0xFF
-
-
-def collisions(code_q: torch.Tensor, code_u: torch.Tensor,
-               m_bits: int) -> torch.Tensor:
-    """#Col(q, u) per Eq. (5).  Broadcasts over leading dims.
-
-    code_*: int64[..., m/32] -> int32[...]
-    """
-    ham = popcount(code_q ^ code_u).sum(-1)
-    return (m_bits - ham).to(torch.int32)
+    codes = simhash_encode(x.reshape(-1, x.shape[-1]).to(torch.float32)
+                           .contiguous(), proj.contiguous())
+    return codes.reshape(*x.shape[:-1], codes.shape[-1])
 
 
 def collision_probability(cos_sim: torch.Tensor) -> torch.Tensor:

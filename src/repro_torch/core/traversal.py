@@ -5,8 +5,9 @@ of query lanes instead of vmapped.  The bottom-layer traversal is the
 paper's hot loop: pop the closest unexpanded candidates, read their
 adjacency rows (from the LSM tree, or a resolved snapshot of it — pays
 `t_n`), prefilter the neighbors with in-memory SimHash collision counts
-(Eq. 5-6), and fetch full vectors only for survivors (each pays `t_v`)
-through the fused gather+distance kernel.
+(Eq. 5-6, the `collision_count_rows` kernel), and fetch full vectors
+only for survivors (each pays `t_v`) through the fused gather+distance
+kernel.
 
 Loop semantics follow the vmapped `lax.while_loop` exactly: every lane
 carries its own trip counter and state; each trip computes the body for
@@ -28,6 +29,8 @@ import torch
 from repro_torch._device import host_any
 from repro_torch.core import simhash
 from repro_torch.core.iostats import IOStats
+from repro_torch.kernels.gather_l2.ops import gather_l2
+from repro_torch.kernels.simhash.ops import collision_count_rows
 
 INF = float("inf")
 
@@ -180,9 +183,10 @@ def beam_search(
             # duplicates across the B rows would enter the beam twice
             eligible = eligible & _first_occurrence(safe)
 
-        # -- SimHash prefilter (Eq. 5-6), in-memory, whole block -----------
-        cand_codes = codes[safe.clamp_max(cap - 1)]     # [Bq, BM, W]
-        cols = simhash.collisions(code_q[:, None, :], cand_codes, m_bits)
+        # -- SimHash prefilter (Eq. 5-6), in-memory, whole block: counts
+        #    against the codes of the row's ids (out-of-range ids are
+        #    clamped by the kernel and masked by `eligible`) -------------
+        cols = collision_count_rows(code_q, codes, row.contiguous(), m_bits)
         delta_sq = beam_d[:, k - 1]
         if use_filter:
             cos = simhash.cos_from_l2(delta_sq, q_norm, mean_norm)
@@ -268,16 +272,17 @@ def greedy_descent(
     in RAM (paper §3.2), so these reads cost no slow-tier I/O.
     """
     cap = adj.shape[0]
+    q = q.to(torch.float32).contiguous()
     ep = entry.to(torch.int32)
     d_ep = entry_dist.to(torch.float32)
     step = 0
     moved = torch.ones(ep.shape, dtype=torch.bool, device=q.device)
     while step < max_steps and host_any(moved):
         row = adj[ep.long()]                                  # [Bq, M_up]
-        safe = row.clamp(0, cap - 1).long()
-        valid = (row >= 0) & live[safe]
-        diff = vectors[safe] - q[:, None, :]
-        d = torch.where(valid, (diff * diff).sum(-1), INF)
+        valid = (row >= 0) & live[row.clamp(0, cap - 1).long()]
+        # the gather kernel sums in one order on every device, so the
+        # entry distance handed to the beam has the same bits everywhere
+        d = gather_l2(q, vectors, torch.where(valid, row, -1))
         j = d.argmin(1, keepdim=True)
         dj = d.gather(1, j)[:, 0]
         better = moved & (dj < d_ep)

@@ -7,11 +7,13 @@ has only PyTorch:
 
 `gather_l2` and `gather_l2_q8` are bitwise, on float data too: the
 plain versions sum a row in the kernels' order (`gather_l2/ref.py`).
-`l2_distance` is allclose at rtol 1e-5 with an absolute slack of 1e-3
-of the largest squared norm, for the cancellation in |q|^2 + |c|^2 -
-2 q.c.  The beam megakernel equals, bitwise and on float data too, the
-port's loop route on the card (which fetches through `gather_l2` /
-`gather_l2_q8`) and its plain version.
+The three SimHash entries are bitwise too: codes are sign bits of f64
+dot products and counts are integers.  `l2_distance` is allclose at
+rtol 1e-5 with an absolute slack of 1e-3 of the largest squared norm,
+for the cancellation in |q|^2 + |c|^2 - 2 q.c.  The beam megakernel
+equals, bitwise and on float data too, the port's loop route on the
+card (which fetches through `gather_l2` / `gather_l2_q8`) and its plain
+version.
 """
 
 import numpy as np
@@ -26,6 +28,16 @@ from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
 from repro_torch.kernels.gather_l2.ref import gather_l2_q8_ref, gather_l2_ref
 from repro_torch.kernels.l2_distance.ops import l2_distance
 from repro_torch.kernels.l2_distance.ref import l2_distance_ref
+from repro_torch.kernels.simhash.ops import (
+    collision_count,
+    collision_count_rows,
+    simhash_encode,
+)
+from repro_torch.kernels.simhash.ref import (
+    collision_count_ref,
+    collision_count_rows_ref,
+    simhash_encode_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -277,3 +289,72 @@ def test_beam_cuda_kernel_matches_loop_route_and_plain(n_expand, rho,
     for a, b in zip(off[:3], got[:3]):
         assert torch.equal(a, b)
     assert bool((off[3] == -1).all()) and not bool(off[4].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_bits", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 65, 128])
+def test_simhash_cuda_kernels_match_plain(d, m_bits):
+    """Float data at ragged shapes: N not a multiple of a tile (and 0),
+    d = 65, one to four words; ids past both ends of the table."""
+    dev = _cuda()
+    rng = np.random.default_rng(d + m_bits)
+    proj = torch.from_numpy(rng.normal(size=(m_bits, d)).astype(
+        np.float32)).to(dev)
+    for n in (0, 1, 7, 300, 1000):
+        x = torch.from_numpy(rng.normal(size=(n, d)).astype(
+            np.float32)).to(dev)
+        if n:
+            x[0] = 0.0                      # every sign of a zero row is +
+        before = simhash_encode.launches
+        codes = simhash_encode(x, proj)
+        torch.cuda.synchronize()
+        assert simhash_encode.launches == before + (n > 0)
+        assert codes.dtype == torch.int64 and codes.shape == (n, m_bits // 32)
+        assert torch.equal(codes, simhash_encode_ref(x, proj))
+    if n:
+        assert int(codes[0].min()) == 2 ** 32 - 1
+    table = codes                                         # [1000, W]
+    for nq in (1, 17, 300):
+        cq = simhash_encode(torch.from_numpy(rng.normal(size=(nq, d)).astype(
+            np.float32)).to(dev), proj)
+        before = collision_count.launches
+        allp = collision_count(cq, table, m_bits)
+        torch.cuda.synchronize()
+        assert collision_count.launches == before + 1
+        assert torch.equal(allp, collision_count_ref(cq, table, m_bits))
+        ids = torch.from_numpy(rng.integers(-3, 1003, (nq, 48)).astype(
+            np.int32)).to(dev)
+        ids[0, :4] = torch.tensor([0, 999, 1000, -1], dtype=torch.int32)
+        before = collision_count_rows.launches
+        rows = collision_count_rows(cq, table, ids, m_bits)
+        torch.cuda.synchronize()
+        assert collision_count_rows.launches == before + 1
+        assert torch.equal(rows, collision_count_rows_ref(cq, table, ids,
+                                                          m_bits))
+        # the gathered form is the all-pairs form at the (clamped) ids
+        assert torch.equal(rows, allp.gather(1, ids.clamp(0, 999).long()))
+    assert collision_count(cq, table[:0], m_bits).shape == (nq, 0)
+
+
+@pytest.mark.cuda
+def test_simhash_cuda_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    x = torch.zeros((4, 16), device=dev)
+    proj = torch.zeros((64, 16), device=dev)
+    codes = torch.zeros((4, 2), dtype=torch.int64, device=dev)
+    ids = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        simhash_encode(x.double(), proj.double())
+    with pytest.raises(ValueError):
+        simhash_encode(x, proj[:40])
+    with pytest.raises(ValueError):
+        simhash_encode(x, proj.cpu())
+    with pytest.raises(ValueError):
+        collision_count(codes, codes, 96)
+    with pytest.raises(ValueError):
+        collision_count(codes.int(), codes.int(), 64)
+    with pytest.raises(ValueError):
+        collision_count_rows(codes, codes, ids.long(), 64)
+    with pytest.raises(ValueError):
+        collision_count_rows(codes, codes.T.contiguous().T, ids, 64)

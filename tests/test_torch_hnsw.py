@@ -18,7 +18,11 @@ import torch
 
 from repro.core import hnsw as ref
 from repro.core import lsm as ref_lsm
-from repro_torch.bridge import hnsw_state_from_numpy, hnsw_state_to_numpy
+from repro_torch.bridge import (
+    hnsw_state_from_numpy,
+    hnsw_state_to_numpy,
+    lsm_state_to_numpy,
+)
 from repro_torch.core import hnsw, lsm
 
 torch.set_num_threads(1)
@@ -180,8 +184,18 @@ def test_each_step_matches_from_the_bridged_state(ref_run):
 
 
 def test_eager_delete_is_not_ported():
-    st = hnsw.init(TCFG._replace(lazy_delete=False),
-                   torch.zeros((TCFG.m_bits, TCFG.dim)), "cpu")
-    with pytest.raises(NotImplementedError):
-        hnsw.delete_batch(TCFG._replace(lazy_delete=False), st,
-                          torch.tensor([0]))
+    """Eager delete was once refused here; it is ported now
+    (`tests/test_torch_delete.py` holds it against the reference).  On an
+    empty index every id is absent: a counted no-op, as in the
+    reference, whose counters and tree this checks."""
+    cfg = TCFG._replace(lazy_delete=False)
+    st = hnsw.init(cfg, torch.zeros((cfg.m_bits, cfg.dim)), "cpu")
+    jcfg = JCFG._replace(lazy_delete=False)
+    ref_st, ref_io = ref.delete_batch(jcfg, ref.init(jcfg, jax.random.key(0)),
+                                      jnp.asarray([0, -1, 0], jnp.int32))
+    st, io = hnsw.delete_batch(cfg, st, torch.tensor([0, -1, 0]))
+    assert int(st.n_delete_noops) == int(ref_st.n_delete_noops) == 2
+    assert [int(a) for a in io] == [int(a) for a in ref_io] == [0, 0, 0, 0]
+    got = lsm_state_to_numpy(st.store)
+    for k, v in _np_state(ref_st.store).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
