@@ -2,6 +2,11 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+`python3 chip_smoke.py --kernel-shapes [SRC]` runs only the per-shape
+timing of `gather_l2` and `l2_distance` (`kernel_shapes`), for the port
+under SRC (default: this checkout's src/), so two trees can be timed in
+one call on one card.
+
 Phases, each printing one JSON line (a failed phase raises, so the
 script exits non-zero and prints no result):
 
@@ -11,7 +16,13 @@ script exits non-zero and prints no result):
              entries (simhash_encode, collision_count and its gathered
              form collision_count_rows) against their plain PyTorch
              versions on the card, at the main path's shapes; median
-             times, bounds, library yardsticks
+             times, bounds, library yardsticks; `gather_l2` and
+             `l2_distance` also timed at every shape class the main
+             path launches them at (`kernel_shapes`: the gather's
+             search, insert phase A and phase B shapes, the dense
+             kernel's ground truth and build ramp) and the gather's
+             host time per call with its entry point bound once and,
+             in the same run, bound on every call
   main_path  SIFT1M's shape (d=128, f32, default HNSWConfig) with state
              allocated at cap = 1,048,576 on the card: build -> search (LSM
              probe, snapshot and fused routes) -> insert_batch 4 x 1,024 ->
@@ -20,8 +31,10 @@ script exits non-zero and prints no result):
              with recall@10 against brute_force_knn; kernel launch counts
              are zeroed before and read after every step (every search
              launches simhash_encode, every loop-route search
-             collision_count_rows); the fused route's ids equal the
-             snapshot route's at every step
+             collision_count_rows), and gather_l2's and l2_distance's
+             by the kernel variant each call takes; the fused route's ids equal the snapshot
+             route's at every step; then the insert_batch step times
+             beside the gather's host time per call
   beam       the beam megakernel over the built index's snapshot, for
              B in {1, 4} and rho in {1.0, 0.5}: bitwise against the loop
              route on the card, ids against its plain version; times
@@ -55,6 +68,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -78,6 +92,13 @@ F32_FLOPS = 67e12
 F64_FLOPS = 67e12
 RECALL_FLOOR = 0.15
 SPIN_CYCLES_PER_S = 2e9       # about the H100's SM clock under load
+# gather_l2's calls on the main path, [B, K, caller]
+GATHER_SHAPES = ((1000, 16, "search: bottom beam"),
+                 (1000, 8, "search: upper descent"),
+                 (1024, 64, "insert_batch: phase A beam (4 x 16 ids)"),
+                 (1, 8, "insert_batch: phase B connect"),
+                 (1, 16, "insert_batch: phase B connect"))
+RAMP_SAMPLE = 32              # time every 32nd block of the build ramp
 
 
 def emit(obj) -> None:
@@ -120,6 +141,144 @@ def median_ms(fn, args_list, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def build_ramp(n: int, batch: int = 64):
+    """The [rows, placed] blocks `hnsw._incremental_graph` hands
+    `l2_distance` for a layer of n nodes: a geometric ramp up to `batch`
+    rows, then `batch` rows at a time."""
+    bounds, step = [1], 1
+    while bounds[-1] < n:
+        bounds.append(min(bounds[-1] + step, n))
+        step = min(batch, step * 2)
+    return [(e - s, s) for s, e in zip(bounds[:-1], bounds[1:])]
+
+
+def _bound(n_bytes, flops):
+    """(bound ms, what bounds it) on the H100's f32 and HBM peaks."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def host_us_per_call(gather_l2, q, table, ids, calls=1000, rounds=5):
+    """Host µs per `gather_l2` call (wall time of `calls` back-to-back
+    calls, median of `rounds`), with the entry point bound once as the
+    wrapper does, and bound on every call (the library looked up under
+    the build lock and its ctypes types set, as the wrappers did before
+    they bound once); the two alternate, round by round."""
+    import ctypes
+    import torch
+    from unittest import mock
+    ops = sys.modules[gather_l2.__module__]
+
+    def per_call(name, argtypes):
+        fn = getattr(ops._build.library("gather_l2"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def wall_us():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            gather_l2(q, table, ids)
+        us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        return us
+
+    wall_us()
+    once, each = [], []
+    for _ in range(rounds):
+        once.append(wall_us())
+        with mock.patch.object(ops, "_kernel", per_call):
+            each.append(wall_us())
+    return dict(bound_once=float(np.median(once)),
+                bound_per_call=float(np.median(each)), calls=calls,
+                rounds=rounds)
+
+
+def kernel_shapes(dev, gather_l2, l2_distance):
+    """Device times of `gather_l2` and `l2_distance` at the main path's
+    shapes, each beside its bound: the gather at `GATHER_SHAPES` over a
+    cap-sized table (fresh ids every call, so rows come from device
+    memory), the dense kernel at ground truth (1,000 x the base) and
+    over the bottom layer's build ramp (`build_ramp`: every
+    `RAMP_SAMPLE`-th block timed, each standing for the blocks up to the
+    next sample: the middle block of each run of that many;
+    `torch.cdist` timed at the same shapes), and the host
+    time of one `gather_l2` call at [1, 8] (`host_us_per_call`);
+    beside them the time the same timing reads for an empty kernel.
+    Takes the wrappers as arguments, so it times another tree's."""
+    import torch
+
+    from repro_torch.data.synth import make_clustered_vectors
+    # what the timing reads for a kernel that does nothing
+    floor_ms = median_ms(lambda: torch.cuda._sleep(0), [()] * 30)
+    g = torch.Generator(device=dev).manual_seed(2)
+    table = torch.randn((CAP, DIM), generator=g, device=dev)
+    qs = torch.randn((max(b for b, _, _ in GATHER_SHAPES), DIM), generator=g,
+                     device=dev)
+    gathers = []
+    for b, k, caller in GATHER_SHAPES:
+        q = qs[:b]
+        id_sets = [torch.randint(0, N_BASE, (b, k), generator=g,
+                                 device=dev).int() for _ in range(30)]
+        ms = median_ms(lambda i: gather_l2(q, table, i),
+                       [(i,) for i in id_sets])
+        rows = float(np.median([int(torch.unique(i).numel())
+                                for i in id_sets]))
+        bound, by = _bound(4 * (b * DIM + 2 * b * k + rows * DIM),
+                           3 * b * k * DIM)
+        gathers.append(dict(shape=f"[{b}, {k}]", b=b, k=k, caller=caller,
+                            ms=ms,
+                            bound_ms=bound, bound_by=by))
+    host_us = host_us_per_call(gather_l2, qs[:1], table, torch.randint(
+        0, N_BASE, (1, 8), generator=g, device=dev).int())
+    del table
+
+    cv = torch.from_numpy(make_clustered_vectors(N_BASE, DIM, seed=11)).to(dev)
+    qv = torch.from_numpy(make_clustered_vectors(N_QUERIES, DIM,
+                                                 seed=12)).to(dev)
+
+    def cdist(a, b):
+        return torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist")
+
+    def dense_bound(nq, nc):
+        return _bound(4 * (nq * DIM + nc * DIM + nq * nc), 2 * nq * nc * DIM)
+
+    # yardstick of what the card's FFMA pipe sustains: cuBLAS's strict
+    # f32 product alone (no norms, no clamp) at the same shapes
+    cvt = cv.T.contiguous()
+    gt_ms = median_ms(l2_distance, [(qv, cv)] * 10)
+    gt_bound, gt_by = dense_bound(N_QUERIES, N_BASE)
+    gt = dict(shape=f"{N_QUERIES}x{N_BASE}", ms=gt_ms, bound_ms=gt_bound,
+              bound_by=gt_by,
+              product_only_mm_ms=median_ms(torch.mm, [(qv, cvt)] * 10))
+    last = cv[N_BASE - 64:]
+    block = dict(shape=f"64x{N_BASE - 64} (the ramp's last block)",
+                 ms=median_ms(l2_distance, [(last, cv[:N_BASE - 64])] * 10),
+                 product_only_mm_ms=median_ms(
+                     torch.mm, [(last, cvt[:, :N_BASE - 64])] * 10))
+    del cvt
+    blocks = build_ramp(N_BASE)
+    ramp = dict(blocks=len(blocks), sampled=0, ms=0.0, bound_ms=0.0,
+                cdist_ms=0.0)
+    samples = []        # [rows, placed, ms, cdist ms] of each sample
+    for first in range(0, len(blocks), RAMP_SAMPLE):
+        weight = min(RAMP_SAMPLE, len(blocks) - first)
+        rows, placed = blocks[first + weight // 2]
+        a, b = cv[placed:placed + rows], cv[:placed]
+        samples.append([rows, placed, median_ms(l2_distance, [(a, b)] * 5),
+                        median_ms(cdist, [(a, b)] * 5)])
+        ramp["ms"] += weight * samples[-1][2]
+        ramp["cdist_ms"] += weight * samples[-1][3]
+        ramp["sampled"] += 1
+        ramp["bound_ms"] += weight * dense_bound(rows, placed)[0]
+    ramp["shape"] = (f"[<=64, placed] x {len(blocks)} blocks, placed "
+                     f"1..{blocks[-1][1]}, d={DIM}")
+    return dict(gather=gathers, host_us_1x8=host_us, ground_truth=gt,
+                ramp=ramp, ramp_samples=samples, last_block=block,
+                empty_kernel_ms=floor_ms)
 
 
 def phase_kernels(dev):
@@ -168,6 +327,27 @@ def phase_kernels(dev):
                 if not ok:
                     raise AssertionError(f"gather_l2 disagrees: {checks[-1]}")
         del table_i, table_r
+    # the chunk edges of the redesigned kernel (8 ids a warp): a lone
+    # query (insert phase B) and K below, at, past and not a multiple of
+    # one chunk, bitwise on integer and float data
+    table_r = torch.randn((N_BASE, DIM), generator=g, device=dev)
+    table_i = table_r.mul(4).round()
+    for b, k in ((1, 1), (1, 7), (1, 8), (1, 9), (1, 16), (1, 100),
+                 (N_QUERIES, 1), (N_QUERIES, 7), (N_QUERIES, 9),
+                 (N_QUERIES, 100)):
+        ids = torch.randint(-1, N_BASE, (b, k), generator=g,
+                            device=dev).int()
+        for integer, tab in ((True, table_i), (False, table_r)):
+            q = torch.randn((b, DIM), generator=g, device=dev)
+            if integer:
+                q = q.mul(4).round()
+            ok = torch.equal(gather_l2(q, tab, ids),
+                             gather_l2_ref(q, tab, ids))
+            checks.append(dict(kernel="gather_l2", b=b, d=DIM, k=k,
+                               integer=integer, ok=ok))
+            if not ok:
+                raise AssertionError(f"gather_l2 disagrees: {checks[-1]}")
+    del table_i, table_r
     # timing at the search path's shape: fresh ids every launch, so the
     # rows come from device memory as a hop's would
     table = torch.randn((CAP, DIM), generator=g, device=dev)
@@ -256,6 +436,17 @@ def phase_kernels(dev):
             raise AssertionError(f"l2_distance disagrees: {checks[-1]}")
         if l_err is None:
             l_err = err
+    # integer-valued data: every product and partial sum is exact in
+    # f32, so the kernel must give the plain version's bits, on both
+    # tiles (a build block and ground truth)
+    qi, ci = qv.mul(4).round(), cv.mul(4).round()
+    for qq, cc in ((qi, ci), (ci[:64], ci[64:80000]), (ci[:37], ci[37:5000])):
+        ok = torch.equal(l2_distance(qq, cc), l2_distance_ref(qq, cc))
+        checks.append(dict(kernel="l2_distance", q=qq.shape[0],
+                           n=cc.shape[0], d=DIM, integer=True, ok=ok))
+        if not ok:
+            raise AssertionError(f"l2_distance disagrees: {checks[-1]}")
+    del qi, ci
     reps = [(qv, cv)] * 10
     l_ms = median_ms(l2_distance, reps)
     l_plain = median_ms(l2_distance_ref, reps)
@@ -266,6 +457,8 @@ def phase_kernels(dev):
     l_bound = 1e3 * max(l_bytes / HBM_BYTES_PER_S, l_flops / F32_FLOPS)
     simhash_rows = _simhash_kernels(dev, g, checks)
     emit({"phase": "kernels", "checks": checks})
+    shapes = kernel_shapes(dev, gather_l2, l2_distance)
+    emit({"phase": "kernel_shapes", **shapes})
     return {**simhash_rows,
         "gather_l2": dict(
             name="gather_l2", route="cuda",
@@ -275,7 +468,8 @@ def phase_kernels(dev):
             bound_by=("bytes" if g_bytes / HBM_BYTES_PER_S
                       >= g_flops / F32_FLOPS else "operations"),
             library_ms=None,
-            shape=f"B={N_QUERIES} K=16 d={DIM} table={CAP}x{DIM}"),
+            shape=f"B={N_QUERIES} K=16 d={DIM} table={CAP}x{DIM}",
+            shapes=shapes["gather"], host_us_1x8=shapes["host_us_1x8"]),
         "gather_l2_q8": dict(
             name="gather_l2_q8", route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
@@ -294,7 +488,8 @@ def phase_kernels(dev):
             bound_by=("operations" if l_flops / F32_FLOPS
                       >= l_bytes / HBM_BYTES_PER_S else "bytes"),
             library_ms=l_lib, library="torch.cdist (the root of this)",
-            shape=f"Q={N_QUERIES} N={N_BASE} d={DIM}"),
+            shape=f"Q={N_QUERIES} N={N_BASE} d={DIM}",
+            shapes=[shapes["ground_truth"], shapes["ramp"]]),
     }
 
 
@@ -412,6 +607,8 @@ def _simhash_kernels(dev, g, checks):
 
 KERNEL_NAMES = ("gather_l2", "gather_l2_q8", "l2_distance", "beam",
                 "simhash_encode", "collision_count_rows", "collision_count")
+# the wrappers that also count their launches by shape class
+BY_CLASS = ("gather_l2", "l2_distance")
 # the all-pairs collision count lies on no path of the system (the
 # reference's core runs only the plain form too); it is held against its
 # plain version in the kernels phase
@@ -442,6 +639,8 @@ def counted(step, fn):
     wrappers = launch_counters()
     for w in wrappers.values():
         w.launches = 0
+    for n in BY_CLASS:
+        wrappers[n].by_class.clear()
     host_any.syncs = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -450,6 +649,8 @@ def counted(step, fn):
     secs = time.perf_counter() - t0
     return out, dict(step=step, seconds=secs,
                      launches={n: w.launches for n, w in wrappers.items()},
+                     by_class={n: dict(wrappers[n].by_class)
+                               for n in BY_CLASS},
                      host_syncs=host_any.syncs)
 
 
@@ -538,21 +739,25 @@ def phase_main_path(dev):
                "per 64 nodes; 1,000,000 rows do not fit the run's time"}})
     steps = []
     totals = dict.fromkeys(KERNEL_NAMES, 0)
+    class_totals = {n: Counter() for n in BY_CLASS}
+
+    def tally(rec):
+        for kname, n in rec["launches"].items():
+            totals[kname] += n
+        for kname in BY_CLASS:
+            class_totals[kname].update(rec["by_class"][kname])
+        steps.append(rec)
 
     def step(name, fn, **extra_fields):
         out, rec = counted(name, fn)
         rec.update(extra_fields)
-        for kname, n in rec["launches"].items():
-            totals[kname] += n
-        steps.append(rec)
+        tally(rec)
         return out, rec
 
     def search(name, index, snap, truth, vectors, live, dels=()):
         res, rec = search_step(name, index, snap, queries, truth, vectors,
                                live, dels)
-        for kname, n in rec["launches"].items():
-            totals[kname] += n
-        steps.append(rec)
+        tally(rec)
         return res, rec
 
     def search_routes(prefix, truth, vectors, live, dels=(), probe=True):
@@ -662,12 +867,16 @@ def phase_main_path(dev):
     for kname, n in totals.items():
         if n == 0 and kname not in OFF_PATH:
             raise AssertionError(f"main path never launched {kname}")
+    class_totals = {n: dict(c) for n, c in class_totals.items()}
     emit({"phase": "main_path", "launches": totals,
+          "launches_by_class": class_totals,
           "peak_memory_gib_before_tier_step": peak_gib,
           "host_syncs_per_search": {
               r["step"]: r["host_syncs"] for r in steps
               if r["step"].startswith("search")}})
-    return idx, queries, truth_live, final, totals
+    insert_s = [r["seconds"] for r in steps
+                if r["step"].startswith("insert_batch")]
+    return idx, queries, truth_live, final, totals, class_totals, insert_s
 
 
 def phase_parity(dev, idx, queries, truth_live, final):
@@ -1129,16 +1338,45 @@ def phase_maintenance(dev, idx, queries):
     torch.cuda.synchronize()
 
 
+def kernels_line(kernels, totals, by_class) -> dict:
+    """The `kernels` line: each row with its main-path launches, and each
+    timed shape of `gather_l2` and `l2_distance` with its shape class
+    (the kernel variant its wrapper's `shape_class` names) and that
+    class's launches."""
+    from repro_torch.kernels.gather_l2.ops import shape_class as g_class
+    from repro_torch.kernels.l2_distance.ops import shape_class as l_class
+    for name, row in kernels.items():
+        row["launches"] = totals[name]
+    kernels["collision_count_rows"]["entries"]["collision_count"][
+        "launches"] = totals["collision_count"]
+    for e in kernels["gather_l2"]["shapes"]:
+        e["class"] = g_class(e["b"], e["k"])
+    gt, ramp = kernels["l2_distance"]["shapes"]
+    gt["class"], ramp["class"] = l_class(N_QUERIES), l_class(64)
+    gt["caller"], ramp["caller"] = "brute_force_knn", "bulk build"
+    for name in BY_CLASS:
+        for e in kernels[name]["shapes"]:
+            e["class_launches"] = by_class[name].get(e["class"], 0)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shapes", "entries")
+    return {"kernels": [{k: row[k] for k in keys if k in row}
+                        for row in kernels.values()]}
+
+
 def main() -> int:
     import torch
+    shapes_only = sys.argv[1:2] == ["--kernel-shapes"]
+    src = Path(sys.argv[2]).resolve() if shapes_only and len(sys.argv) > 2 \
+        else SRC
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: the port's sources (src/repro_torch) are not "
-              "beside this script", file=sys.stderr)
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources ({src / 'repro_torch'}) are "
+              "not there", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # full f32 products everywhere (the bulk-build and consolidation
@@ -1166,9 +1404,20 @@ def main() -> int:
                            max_spill_store_bytes=max(spill or [0]))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.last_build.get("seconds"), "ptxas": ptxas})
+    if shapes_only:
+        from repro_torch.kernels.gather_l2.ops import gather_l2
+        from repro_torch.kernels.l2_distance.ops import l2_distance
+        emit({"phase": "kernel_shapes", "src": str(src),
+              **kernel_shapes(dev, gather_l2, l2_distance)})
+        return 0
 
     kernels = phase_kernels(dev)
-    idx, queries, truth_live, final, totals = phase_main_path(dev)
+    idx, queries, truth_live, final, totals, by_class, insert_s = \
+        phase_main_path(dev)
+    emit({"phase": "wrapper",
+          "gather_l2_host_us_per_call_1x8":
+              kernels["gather_l2"]["host_us_1x8"],
+          "insert_batch_seconds": insert_s})
     phase_parity(dev, idx, queries, truth_live, final)
     kernels["beam"] = phase_beam(dev, idx, queries)
     from repro_torch.data.synth import make_clustered_vectors
@@ -1176,16 +1425,9 @@ def main() -> int:
                   make_clustered_vectors(256, DIM, seed=2))
     phase_maintenance(dev, idx, queries)
 
-    for name, row in kernels.items():
-        row["launches"] = totals[name]
-    kernels["collision_count_rows"]["entries"]["collision_count"][
-        "launches"] = totals["collision_count"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row[k] for k in keys + ("entries",) if k in row}
-                      for row in kernels.values()]})
+    emit(kernels_line(kernels, totals, by_class))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -28,11 +28,18 @@ MAX_HASH_BITS = 15       # visited slots (128 KiB)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+_fn = None
+
+
 def _kernel():
-    fn = _build.library("beam").beam_search_f32
-    fn.argtypes = [_P] * 20 + [_I] * 12 + [_F, _F] + [_I] * 7 + [_P]
-    fn.restype = ctypes.c_int
-    return fn
+    """The kernel's C entry point, bound on first use."""
+    global _fn
+    if _fn is None:
+        fn = _build.library("beam").beam_search_f32
+        fn.argtypes = [_P] * 20 + [_I] * 12 + [_F, _F] + [_I] * 7 + [_P]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def _hash_bits(iter_cap: int, block: int) -> int:

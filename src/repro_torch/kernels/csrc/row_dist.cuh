@@ -99,4 +99,89 @@ __device__ __forceinline__ float l2_q8(const float* __restrict__ q,
   return warp_sum(acc);
 }
 
+// The distances from one query row to 8 table rows, by one warp, each
+// summed exactly as l2_f32 sums it: the same lane-strided groups in the
+// same order, the same contracted multiply-add per element, and the same
+// tree across lanes.  That tree is warp_sum's butterfly in transposing
+// form: at the levels 16, 8 and 4 a lane keeps half of the rows it still
+// holds and adds its partner's partial of them (own + partner, as
+// warp_sum adds), so every row combines the same lane pairs at the same
+// levels; levels 2 and 1 are a butterfly on the one row left.  9 shuffles
+// instead of 40.  Each step issues the 8 rows' loads, unconditionally,
+// before the first sum, so a warp keeps 8 rows in flight (a caller points
+// a row it skips at any readable row of d floats, the query itself, and
+// ignores its sum).  Returns, in every lane, the total of row
+// row_of_lane(lane): each row's total lands in the 4 lanes lane & ~3.
+__device__ __forceinline__ int row_of_lane(int lane) {
+  return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+}
+
+__device__ __forceinline__ float reduce_rows8(const float (&v)[8], int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  float u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = hi16 ? v[i + 4] : v[i];
+    const float give = hi16 ? v[i] : v[i + 4];
+    u[i] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+  }
+  float t[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float keep = hi8 ? u[i + 2] : u[i];
+    const float give = hi8 ? u[i] : u[i + 2];
+    t[i] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+  }
+  float s = (hi4 ? t[1] : t[0]) +
+            __shfl_xor_sync(0xffffffffu, hi4 ? t[0] : t[1], 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s;
+}
+
+template <bool kVec4>
+__device__ __forceinline__ float l2_f32_rows8(const float* __restrict__ q,
+                                              const float* const (&rows)[8],
+                                              int d, int lane) {
+  float acc[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+  if (kVec4) {
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int j = lane; j < d / 4; j += 32) {
+      const float4 a = __ldg(q4 + j);
+      float4 c[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        c[r] = __ldg(reinterpret_cast<const float4*>(rows[r]) + j);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float dx = a.x - c[r].x, dy = a.y - c[r].y;
+        const float dz = a.z - c[r].z, dw = a.w - c[r].w;
+        acc[r] += dx * dx;
+        acc[r] += dy * dy;
+        acc[r] += dz * dz;
+        acc[r] += dw * dw;
+      }
+    }
+  } else {
+    const int w = d % 4 == 0 ? 4 : 1;
+    for (int j = lane; j < d / w; j += 32) {
+      for (int e = j * w; e < (j + 1) * w; ++e) {
+        const float qe = __ldg(q + e);
+        float c[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) c[r] = __ldg(rows[r] + e);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float diff = qe - c[r];
+          acc[r] += diff * diff;
+        }
+      }
+    }
+  }
+  return reduce_rows8(acc, lane);
+}
+
 }  // namespace rowdist

@@ -8,6 +8,7 @@ to the other.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -17,11 +18,29 @@ from repro_torch.kernels.gather_l2.ref import gather_l2_q8_ref, gather_l2_ref
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+_fns: dict = {}
+
+
 def _kernel(name: str, argtypes):
-    fn = getattr(_build.library("gather_l2"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point `name`, bound on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library("gather_l2"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
+
+
+#: pairs up to which a call takes the warp-per-pair kernel
+#: (`kPairCalls` in `csrc/gather_l2.cu`)
+PAIR_CALLS = 64
+
+
+def shape_class(b: int, k: int) -> str:
+    """The kernel a [b, k] call launches: "pair" (one warp per pair, at
+    most `PAIR_CALLS` pairs) or "chunk" (one warp per 8 ids)."""
+    return "pair" if b * k <= PAIR_CALLS else "chunk"
 
 
 def _on_card(name: str, queries, table, ids, *extra) -> bool:
@@ -53,7 +72,8 @@ def gather_l2(queries: torch.Tensor, table: torch.Tensor,
     """Fetch `table[ids]` and return squared L2 to `queries`.
 
     queries f32[B, d], table f32[N, d], ids int32[B, K] -> f32[B, K];
-    ids < 0 yield +inf.  `gather_l2.launches` counts kernel launches.
+    ids < 0 yield +inf.  `gather_l2.launches` counts kernel launches,
+    and `gather_l2.by_class` the same launches by `shape_class`.
     """
     if not _on_card("gather_l2", queries, table, ids):
         return gather_l2_ref(queries, table, ids)
@@ -74,10 +94,13 @@ def gather_l2(queries: torch.Tensor, table: torch.Tensor,
             out.data_ptr(), b, k, d, table.shape[0], int(vec4), stream)
     _build.check(err, "gather_l2")
     gather_l2.launches += 1
+    gather_l2.by_class[shape_class(b, k)] += 1
     return out
 
 
 gather_l2.launches = 0
+#: launches by `shape_class`, reset with `launches`
+gather_l2.by_class = Counter()
 
 
 def gather_l2_q8(queries: torch.Tensor, qtable: torch.Tensor,

@@ -24,10 +24,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MAX_WORDS = 384
 
 
+_fns: dict = {}
+
+
 def _kernel(name: str, argtypes):
-    fn = getattr(_build.library("simhash"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point `name`, bound on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library("simhash"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 

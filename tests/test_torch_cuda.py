@@ -10,7 +10,9 @@ plain versions sum a row in the kernels' order (`gather_l2/ref.py`).
 The three SimHash entries are bitwise too: codes are sign bits of f64
 dot products and counts are integers.  `l2_distance` is allclose at
 rtol 1e-5 with an absolute slack of 1e-3 of the largest squared norm,
-for the cancellation in |q|^2 + |c|^2 - 2 q.c.  The beam megakernel
+for the cancellation in |q|^2 + |c|^2 - 2 q.c, and bitwise on
+integer-valued data, where every product and partial sum is exact in
+f32 whatever the order.  The beam megakernel
 equals, bitwise and on float data too, the port's loop route on the
 card (which fetches through `gather_l2` / `gather_l2_q8`) and its plain
 version.
@@ -24,9 +26,14 @@ from repro_torch.core import simhash, traversal
 from repro_torch.core.hnsw import _snapshot_adj_fn
 from repro_torch.kernels.beam.ops import fused_beam_search
 from repro_torch.kernels.beam.ref import beam_search_ref
-from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
+from repro_torch.kernels.gather_l2.ops import (
+    gather_l2,
+    gather_l2_q8,
+    shape_class,
+)
 from repro_torch.kernels.gather_l2.ref import gather_l2_q8_ref, gather_l2_ref
 from repro_torch.kernels.l2_distance.ops import l2_distance
+from repro_torch.kernels.l2_distance.ops import shape_class as l2_shape_class
 from repro_torch.kernels.l2_distance.ref import l2_distance_ref
 from repro_torch.kernels.simhash.ops import (
     collision_count,
@@ -62,37 +69,63 @@ def _gather_inputs(d, integer, seed, b, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 65, 128])
-@pytest.mark.parametrize("k", [16, 48])
-def test_gather_l2_cuda_kernel_matches_plain(d, k):
+@pytest.mark.parametrize("d", [16, 65, 128, 960])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 16, 48, 100])
+@pytest.mark.parametrize("b", [1, 300])
+def test_gather_l2_cuda_kernel_matches_plain(b, k, d):
+    """Bitwise on integer and float data, on both kernels (a warp per
+    pair up to 64 pairs, else 8 ids a warp): a lone query, K below, at
+    and past one chunk and not a multiple of it, ragged and wide rows,
+    aligned and misaligned operands (the scalar loads)."""
     dev = _cuda()
     for integer in (True, False):
         q, table, ids = (torch.from_numpy(a).to(dev) for a in _gather_inputs(
-            d, integer, seed=k, b=300, k=k, n=5000))
-        before = gather_l2.launches
+            d, integer, seed=b * k + d, b=b, k=k, n=3000))
+        ref = gather_l2_ref(q, table, ids)
+        before, by_class = gather_l2.launches, dict(gather_l2.by_class)
         out = gather_l2(q, table, ids)
         torch.cuda.synchronize()
         assert gather_l2.launches == before + 1
-        ref = gather_l2_ref(q, table, ids)
+        cls = shape_class(b, k)
+        assert gather_l2.by_class[cls] == by_class.get(cls, 0) + 1
         assert torch.equal(out, ref)
+        assert torch.equal(gather_l2(_misaligned(q), table, ids), ref)
+        assert torch.equal(gather_l2(q, _misaligned(table), ids), ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q_n,c_n,d", [(1000, 4097, 128), (37, 1001, 128),
-                                       (64, 300, 65)])
+@pytest.mark.parametrize("d", [65, 128])
+@pytest.mark.parametrize("c_n", [1, 127, 129, 4097])
+@pytest.mark.parametrize("q_n", [1, 63, 64, 65, 128, 1000])
 def test_l2_distance_cuda_kernel_matches_plain(q_n, c_n, d):
+    """Both tiles (Q <= 64 and Q > 64) at ragged N and d, aligned and
+    misaligned operands (cp.async and scalar staging): allclose on float
+    data and never negative, bitwise on integer-valued data."""
     dev = _cuda()
-    g = torch.Generator().manual_seed(q_n + c_n)
-    q = (10 * torch.randn((q_n, d), generator=g)).to(dev)
-    c = (10 * torch.randn((c_n, d), generator=g)).to(dev)
-    before = l2_distance.launches
-    out = l2_distance(q, c)
-    torch.cuda.synchronize()
-    assert l2_distance.launches == before + 1
-    ref = l2_distance_ref(q, c)
+    rng = np.random.default_rng(7 * q_n + c_n + d)
+
+    def layouts(q, c):
+        return ((q, c), (q, _misaligned(c)), (_misaligned(q), c))
+
+    q, c = (torch.from_numpy((10 * rng.normal(size=(n, d))).astype(
+        np.float32)).to(dev) for n in (q_n, c_n))
     scale = max(float((q * q).sum(1).max()), float((c * c).sum(1).max()))
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3 * scale)
-    assert bool((out >= 0).all())
+    for qq, cc in layouts(q, c):
+        before = l2_distance.launches
+        out = l2_distance(qq, cc)
+        torch.cuda.synchronize()
+        assert l2_distance.launches == before + 1
+        torch.testing.assert_close(out, l2_distance_ref(qq, cc), rtol=1e-5,
+                                   atol=1e-3 * scale)
+        assert bool((out >= 0).all())
+    q, c = (torch.from_numpy(rng.integers(-8, 9, (n, d)).astype(
+        np.float32)).to(dev) for n in (q_n, c_n))
+    ref = l2_distance_ref(q, c)
+    for qq, cc in layouts(q, c):
+        by_class = dict(l2_distance.by_class)
+        assert torch.equal(l2_distance(qq, cc), ref)
+        cls = l2_shape_class(q_n)
+        assert l2_distance.by_class[cls] == by_class.get(cls, 0) + 1
 
 
 @pytest.mark.cuda
