@@ -3,9 +3,11 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 `python3 chip_smoke.py --kernel-shapes [SRC]` runs only the per-shape
-timing of `gather_l2` and `l2_distance` (`kernel_shapes`), for the port
-under SRC (default: this checkout's src/), so two trees can be timed in
-one call on one card.
+timing of `gather_l2`, `l2_distance` and `simhash_encode`
+(`kernel_shapes`), for the port under SRC (default: this checkout's
+src/), so two trees can be timed in one call on one card.
+`python3 chip_smoke.py --beam-ab SRC` times this checkout's beam kernel
+against SRC's in one process (`beam_ab`).
 
 Phases, each printing one JSON line (a failed phase raises, so the
 script exits non-zero and prints no result):
@@ -22,7 +24,8 @@ script exits non-zero and prints no result):
              search, insert phase A and phase B shapes, the dense
              kernel's ground truth and build ramp) and the gather's
              host time per call with its entry point bound once and,
-             in the same run, bound on every call
+             in the same run, bound on every call; `simhash_encode` at
+             a search's, an insert batch's and the build's row counts
   main_path  SIFT1M's shape (d=128, f32, default HNSWConfig) with state
              allocated at cap = 1,048,576 on the card: build -> search (LSM
              probe, snapshot and fused routes) -> insert_batch 4 x 1,024 ->
@@ -32,17 +35,23 @@ script exits non-zero and prints no result):
              are zeroed before and read after every step (every search
              launches simhash_encode, every loop-route search
              collision_count_rows), and gather_l2's and l2_distance's
-             by the kernel variant each call takes; the fused route's ids equal the snapshot
-             route's at every step; then the insert_batch step times
-             beside the gather's host time per call
+             by the kernel variant each call takes; the fused route's
+             ids equal the snapshot route's at every step;
+             insert_batch's phase B (the upper connects: filter off,
+             rho = 1) launches no collision_count_rows; then the
+             insert_batch step times beside the gather's host time per
+             call
   beam       the beam megakernel over the built index's snapshot, for
              B in {1, 4} and rho in {1.0, 0.5}: bitwise against the loop
-             route on the card, ids against its plain version; times
+             route on the card, ids against its plain version; times,
+             hops and trips per query, microseconds per trip
   parity     a small integer-valued run, card against the plain route on
              the CPU, search ids bitwise at every step, on the loop,
              fused and tiered routes, then through an eager delete, a
              compaction and a reordering (perm and every state field
-             too); the full-size queries re-run with the kernels swapped
+             too); a float-data run (`make_clustered_vectors`) through
+             insert_batch and consolidate, every state field bitwise;
+             the full-size queries re-run with the kernels swapped
              for their plain versions, and on the CPU from a copy of the
              final state, ids and dists bitwise
   profile    torch.profiler over one search on each route and one
@@ -69,6 +78,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -197,9 +207,11 @@ def host_us_per_call(gather_l2, q, table, ids, calls=1000, rounds=5):
                 rounds=rounds)
 
 
-def kernel_shapes(dev, gather_l2, l2_distance):
-    """Device times of `gather_l2` and `l2_distance` at the main path's
-    shapes, each beside its bound: the gather at `GATHER_SHAPES` over a
+def kernel_shapes(dev, gather_l2, l2_distance, simhash_encode):
+    """Device times of `gather_l2`, `l2_distance` and `simhash_encode` at
+    the main path's shapes, each beside its bound: the encode at a
+    search's 1,000 queries, an insert batch's 1,024 rows and the bulk
+    build's 131,072 (d = 128, m = 64); the gather at `GATHER_SHAPES` over a
     cap-sized table (fresh ids every call, so rows come from device
     memory), the dense kernel at ground truth (1,000 x the base) and
     over the bottom layer's build ramp (`build_ramp`: every
@@ -235,6 +247,19 @@ def kernel_shapes(dev, gather_l2, l2_distance):
     host_us = host_us_per_call(gather_l2, qs[:1], table, torch.randint(
         0, N_BASE, (1, 8), generator=g, device=dev).int())
     del table
+    proj = torch.randn((64, DIM), generator=g, device=dev)
+    encodes = []
+    for n, caller in ((N_QUERIES, "search: query codes"),
+                      (INSERT_WIDTH, "insert_batch: row codes"),
+                      (N_BASE, "build: row codes")):
+        x = torch.randn((n, DIM), generator=g, device=dev)
+        bound, by = _bound(4 * (n * DIM + 64 * DIM) + 8 * n * 2, 0)
+        f64_ms = 1e3 * 2 * n * 64 * DIM / F64_FLOPS
+        if f64_ms > bound:
+            bound, by = f64_ms, "operations"
+        encodes.append(dict(shape=f"[{n}, {DIM}] m=64", caller=caller,
+                            ms=median_ms(simhash_encode, [(x, proj)] * 10),
+                            bound_ms=bound, bound_by=by))
 
     cv = torch.from_numpy(make_clustered_vectors(N_BASE, DIM, seed=11)).to(dev)
     qv = torch.from_numpy(make_clustered_vectors(N_QUERIES, DIM,
@@ -276,7 +301,8 @@ def kernel_shapes(dev, gather_l2, l2_distance):
         ramp["bound_ms"] += weight * dense_bound(rows, placed)[0]
     ramp["shape"] = (f"[<=64, placed] x {len(blocks)} blocks, placed "
                      f"1..{blocks[-1][1]}, d={DIM}")
-    return dict(gather=gathers, host_us_1x8=host_us, ground_truth=gt,
+    return dict(gather=gathers, host_us_1x8=host_us, encode=encodes,
+                ground_truth=gt,
                 ramp=ramp, ramp_samples=samples, last_block=block,
                 empty_kernel_ms=floor_ms)
 
@@ -457,8 +483,10 @@ def phase_kernels(dev):
     l_bound = 1e3 * max(l_bytes / HBM_BYTES_PER_S, l_flops / F32_FLOPS)
     simhash_rows = _simhash_kernels(dev, g, checks)
     emit({"phase": "kernels", "checks": checks})
-    shapes = kernel_shapes(dev, gather_l2, l2_distance)
+    from repro_torch.kernels.simhash.ops import simhash_encode
+    shapes = kernel_shapes(dev, gather_l2, l2_distance, simhash_encode)
     emit({"phase": "kernel_shapes", **shapes})
+    simhash_rows["simhash_encode"]["shapes"] = shapes["encode"]
     return {**simhash_rows,
         "gather_l2": dict(
             name="gather_l2", route="cuda",
@@ -708,6 +736,31 @@ def search_step(name, index, snap, queries, truth, vectors, live, dels=(),
     return res, rec
 
 
+@contextmanager
+def phase_b_collisions():
+    """Count, while the block runs, the upper-layer routings of inserted
+    items (`hnsw._insert_upper`: insert_batch's phase B) and the
+    `collision_count_rows` launches made inside them."""
+    from repro_torch.core import hnsw
+    from repro_torch.kernels.simhash.ops import collision_count_rows
+    insert_upper = hnsw._insert_upper
+    out = dict(calls=0, launches=0)
+
+    def counted_upper(*args, **kw):
+        before = collision_count_rows.launches
+        try:
+            return insert_upper(*args, **kw)
+        finally:
+            out["calls"] += 1
+            out["launches"] += collision_count_rows.launches - before
+
+    hnsw._insert_upper = counted_upper
+    try:
+        yield out
+    finally:
+        hnsw._insert_upper = insert_upper
+
+
 def view(idx, **flags):
     """An index over `idx`'s state under another configuration (the
     fused route, the tier lanes), its snapshot resolved up front as the
@@ -790,13 +843,21 @@ def phase_main_path(dev):
     search_routes("search", truth, base, all_live)
     for b in range(INSERT_BATCHES):
         rows = extra[b * INSERT_WIDTH:(b + 1) * INSERT_WIDTH]
-        res, rec = step(f"insert_batch_{b}", lambda: idx.insert_batch(rows))
+        with phase_b_collisions() as phase_b:
+            res, rec = step(f"insert_batch_{b}",
+                            lambda: idx.insert_batch(rows))
         want = np.arange(N_BASE + b * INSERT_WIDTH,
                          N_BASE + (b + 1) * INSERT_WIDTH)
         if not np.array_equal(res.ids, want):
             raise AssertionError("insert_batch returned unexpected ids")
-        rec.update(inserts_per_s=INSERT_WIDTH / rec["seconds"])
+        rec.update(inserts_per_s=INSERT_WIDTH / rec["seconds"],
+                   phase_b_upper_connects=phase_b["calls"],
+                   phase_b_collision_count_rows=phase_b["launches"])
         emit(rec)
+        # phase B's upper connects search with the filter off and rho = 1,
+        # where no decision reads a collision count
+        if phase_b["calls"] == 0 or phase_b["launches"]:
+            raise AssertionError(f"insert_batch phase B: {phase_b}")
     allv = data
     n_all = len(allv)
     truth_all, rec = step("ground_truth_all",
@@ -968,6 +1029,7 @@ def phase_parity(dev, idx, queries, truth_live, final):
     if not all(card_fused + cpu_fused):
         raise AssertionError("the fused route differs from the snapshot "
                              "route on the small run")
+    _float_parity(dev)
 
     # full size: the final index's queries with every kernel of the loop
     # routes swapped for its plain version on the card
@@ -1015,6 +1077,66 @@ def phase_parity(dev, idx, queries, truth_live, final):
                                  f"route: {row}")
 
 
+def _float_parity(dev):
+    """Card against the CPU on float data through the update paths: one
+    state bulk-built on the CPU from `make_clustered_vectors` rows (the
+    build's host graph is not under test) and copied to both devices,
+    then on each one insert_batch, a search, a lazy delete, a
+    consolidation and a search.  Every state field after the insert and
+    after the consolidation, and the searches' ids and dists, must be
+    bitwise equal: every distance of those paths sums in row_dist.cuh's
+    order on both devices."""
+    from repro_torch.bridge import hnsw_state_from_numpy, hnsw_state_to_numpy
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.hnsw import HNSWConfig
+    from repro_torch.core.index import LSMVecIndex
+    from repro_torch.data.synth import make_clustered_vectors
+
+    cfg = HNSWConfig(cap=4096, dim=DIM)
+    data = make_clustered_vectors(2000 + 256, DIM, seed=31)
+    qs = make_clustered_vectors(200, DIM, seed=32)
+    t0 = time.perf_counter()
+    built = hnsw_state_to_numpy(LSMVecIndex.build(
+        cfg, data[:2000], seed=7, device="cpu").state)
+    build_s = time.perf_counter() - t0
+    dels = np.random.default_rng(33).choice(2256, 25, replace=False)
+
+    def run(device):
+        t0 = time.perf_counter()
+        idx = LSMVecIndex(cfg, state=hnsw_state_from_numpy(built, device),
+                          device=device)
+        idx.insert_batch(data[2000:])
+        # copies: on the CPU the arrays would alias the state that the
+        # delete and the consolidation then update in place
+        after_insert = {k: v.copy() for k, v in
+                        hnsw_state_to_numpy(idx.state).items()}
+        found = [idx.search(qs, K, params=SearchParams(use_snapshot=False))]
+        idx.delete_batch(dels)
+        rep = idx.maintain("consolidate")
+        found.append(idx.search(qs, K,
+                                params=SearchParams(use_snapshot=False)))
+        return (after_insert, hnsw_state_to_numpy(idx.state), found,
+                rep.reclaimed, time.perf_counter() - t0)
+
+    card, cpu = run(dev), run("cpu")
+    diff = {step: sorted(k for k in card[i] if not np.array_equal(
+        card[i][k], cpu[i][k])) for i, step in ((0, "insert_batch"),
+                                               (1, "consolidate"))}
+    same_search = [bool(np.array_equal(a.ids, b.ids)
+                        and np.array_equal(a.dists, b.dists))
+                   for a, b in zip(card[2], cpu[2])]
+    emit({"phase": "parity_small_float", "cap": cfg.cap, "dim": cfg.dim,
+          "built_rows": 2000, "inserted": 256, "deleted": len(dels),
+          "reclaimed": {"card": card[3], "cpu": cpu[3]},
+          "state_fields": len(card[0]), "state_fields_differing": diff,
+          "searches_equal": same_search, "cpu_build_seconds": build_s,
+          "card_seconds": card[4], "cpu_seconds": cpu[4]})
+    if any(diff.values()) or not all(same_search) or card[3] != len(dels) \
+            or cpu[3] != len(dels):
+        raise AssertionError(f"card and CPU differ on float data: {diff}, "
+                             f"searches {same_search}")
+
+
 def _beam_rows(cfg, snap, routable, entries, out):
     """Distinct rows one beam launch had to read, from its heat lanes:
     the expanded nodes (adjacency rows), the fetched candidates (vector
@@ -1034,22 +1156,13 @@ def _beam_rows(cfg, snap, routable, entries, out):
             int(torch.unique(nbrs[live]).numel()))
 
 
-def phase_beam(dev, idx, queries):
-    """The beam megakernel over the built index's snapshot, 1,000 queries
-    at ef = 48 with the filter on and a lazy-delete lane (1 % of the
-    nodes marked not returnable), for B in {1, 4} and rho in {1.0, 0.5},
-    and once with the tier lanes: bitwise against the loop route on the
-    card (which fetches through gather_l2 / gather_l2_q8) and against its
-    plain version.  Timed at B = 1, rho = 1 (the default configuration);
-    the bound counts the distinct rows the run's own heat lanes say it
-    had to read (`_beam_rows`).  The plain version sums rows in the
-    kernel's order, so it too must agree bitwise, on this float data."""
+def _beam_operands(dev, idx, queries):
+    """The beam kernel's operands over `idx`'s snapshot for `queries`, as
+    the fused route builds them, with a lazy-delete lane (1 % of the
+    nodes marked not returnable) and the tier lanes."""
     import torch
 
-    from repro_torch.core import hnsw, simhash, traversal
-    from repro_torch.kernels.beam.ops import beam_iter_cap, fused_beam_search
-    from repro_torch.kernels.beam.ref import beam_search_ref
-
+    from repro_torch.core import hnsw, simhash
     cfg, st = idx.cfg, idx.state
     snap = idx.snapshot()
     qs = torch.from_numpy(queries).to(dev)
@@ -1065,6 +1178,130 @@ def phase_beam(dev, idx, queries):
             q_norm, st.mean_norm)
     tier_lanes = dict(resident=hnsw._exact_resident(st), qvecs=st.qvecs,
                       qscale=st.qscale)
+    return args, returnable, tier_lanes
+
+
+def _trips(out, B):
+    """(max, mean) trips per query and (max, mean) hops per query of one
+    beam launch: a trip that expanded a node left it in the heat lanes."""
+    nodes = out[3].reshape(out[3].shape[0], -1, B)
+    trips = (nodes >= 0).any(-1).sum(1).float()
+    hops = out[2][:, 3].float()
+    return (int(trips.max()), float(trips.mean()), int(hops.max()),
+            float(hops.mean()))
+
+
+def _beam_bytes(cfg, rows):
+    """Bytes one B = 1 search of the query block must move, each distinct
+    row read once over the whole block (`_beam_rows`): the adjacency rows
+    of the expanded nodes, the vector rows of the fetched candidates (the
+    entries' distances come in), the 4-byte SimHash words and the live
+    byte of every candidate that was eligible; the queries with their
+    codes, norms and entries; and the outputs (heap, stats, heat lanes)."""
+    from repro_torch.kernels.beam.ops import beam_iter_cap
+    n_adj, n_vec, n_code = rows
+    ef = cfg.ef_search
+    iter_cap = beam_iter_cap(2 * ef, 1, ef)
+    return (4 * cfg.M * n_adj + 4 * DIM * n_vec
+            + (4 * cfg.words + 1) * n_code
+            + N_QUERIES * (4 * DIM + 4 * cfg.words + 12)
+            + N_QUERIES * (8 * ef + 16 + iter_cap * (4 + cfg.M)))
+
+
+def beam_ab(dev, parent_src):
+    """`--beam-ab SRC`: this tree's beam kernel against SRC's on one card,
+    in one process, over a freshly built main-path index (the base rows
+    and queries of `phase_main_path`): 1,000 queries, ef = 48, B = 1,
+    rho = 1, filter on, lazy lane.  SRC's beam.cu is compiled with this
+    tree's flags and called through this tree's wrapper (the C interface
+    is the same), the two must agree bitwise, and each is timed twice in
+    the order SRC, this, this, SRC."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.hnsw import HNSWConfig
+    from repro_torch.core.index import LSMVecIndex
+    from repro_torch.data.synth import make_clustered_vectors
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.beam import ops
+
+    source = parent_src / "repro_torch" / "kernels" / "csrc" / "beam.cu"
+    lib = _build.BUILD_DIR / "parent_beam.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(source)], check=True, capture_output=True)
+    change = ops._kernel()
+    parent = ctypes.CDLL(str(lib)).beam_search_f32
+    parent.argtypes, parent.restype = change.argtypes, change.restype
+
+    cfg = HNSWConfig(cap=CAP, dim=DIM)
+    base = make_clustered_vectors(N_BASE + INSERT_BATCHES * INSERT_WIDTH,
+                                  DIM, seed=0)[:N_BASE]
+    t0 = time.perf_counter()
+    idx = LSMVecIndex.build(cfg, base, seed=0)
+    build_s = time.perf_counter() - t0
+    queries = make_clustered_vectors(N_QUERIES, DIM, seed=1)
+    args, returnable, _ = _beam_operands(dev, idx, queries)
+    ef = cfg.ef_search
+    kw = dict(ef=ef, k=K, m_bits=cfg.m_bits, eps=cfg.eps, rho=1.0,
+              max_iters=2 * ef, use_filter=True, n_expand=1)
+
+    def search():
+        return ops.fused_beam_search(*args, returnable=returnable, **kw)
+
+    outs, times = {}, []
+    for name in ("parent", "change", "change", "parent"):
+        with mock.patch.object(ops, "_fn", parent if name == "parent"
+                               else change):
+            outs[name] = search()
+            times.append([name, median_ms(search, [()] * 15, warmup=3)])
+    torch.cuda.synchronize()
+    same = {n: bool(torch.equal(a, b)) for n, a, b in zip(
+        ("ids", "dists", "stats", "heat_nodes", "heat_mask"),
+        outs["parent"], outs["change"])}
+    max_trips, mean_trips, max_hops, mean_hops = _trips(outs["change"], 1)
+    rows = _beam_rows(cfg, args[3], args[7], args[1], outs["change"])
+    change_ms = [t for n, t in times if n == "change"]
+    emit({"phase": "beam_ab", "parent_src": str(parent_src),
+          "times_ms": times, "bitwise_equal": same,
+          "bound_ms": 1e3 * _beam_bytes(cfg, rows) / HBM_BYTES_PER_S,
+          "max_trips": max_trips, "mean_trips": mean_trips,
+          "max_hops": max_hops, "mean_hops": mean_hops,
+          "us_per_trip": [1e3 * t / max_trips for _, t in times],
+          "change_us_per_trip": 1e3 * float(np.mean(change_ms)) / max_trips,
+          "build_seconds": build_s,
+          "shape": f"Bq={N_QUERIES} ef={ef} M={cfg.M} B=1 d={DIM} "
+                   f"base={N_BASE} cap={CAP}"})
+    if not all(same.values()):
+        raise AssertionError(f"the two beam kernels disagree: {same}")
+
+
+def phase_beam(dev, idx, queries):
+    """The beam megakernel over the built index's snapshot, 1,000 queries
+    at ef = 48 with the filter on and a lazy-delete lane (1 % of the
+    nodes marked not returnable), for B in {1, 4} and rho in {1.0, 0.5},
+    and once with the tier lanes: bitwise against the loop route on the
+    card (which fetches through gather_l2 / gather_l2_q8) and against its
+    plain version.  Timed at B = 1, rho = 1 (the default configuration);
+    the bound counts the distinct rows the run's own heat lanes say it
+    had to read (`_beam_rows`).  What sets the time is the slowest
+    query's chain of trips, so each run prints the maximum and mean
+    hops and trips per query, and the timed one the microseconds per
+    trip (the kernel's time over the maximum trips).  The plain version
+    sums rows in the kernel's order, so it too must agree bitwise, on
+    this float data."""
+    import torch
+
+    from repro_torch.core import hnsw, traversal
+    from repro_torch.kernels.beam.ops import fused_beam_search
+    from repro_torch.kernels.beam.ref import beam_search_ref
+
+    cfg, st = idx.cfg, idx.state
+    snap = idx.snapshot()
+    args, returnable, tier_lanes = _beam_operands(dev, idx, queries)
+    qs, ep, d_ep, _, _, _, code_q, routable, q_norm, _ = args
     ef = cfg.ef_search
     rows, timed = [], None
     for B, rho, tier in ((1, 1.0, False), (1, 0.5, False), (4, 1.0, False),
@@ -1092,11 +1329,13 @@ def phase_beam(dev, idx, queries):
         ids_same = float((got[0] == plain[0]).all(1).float().mean())
         fin = torch.isfinite(plain[1]) & torch.isfinite(got[1])
         err = float((got[1][fin] - plain[1][fin]).abs().max())
+        max_trips, mean_trips, max_hops, mean_hops = _trips(got, B)
         rows.append(dict(B=B, rho=rho, tier=tier, bitwise_vs_loop=vs_loop,
                          bitwise_vs_plain=vs_plain,
                          queries_with_plain_ids=ids_same,
-                         max_abs_err_vs_plain=err,
-                         mean_hops=float(got[2][:, 3].float().mean())))
+                         max_abs_err_vs_plain=err, max_hops=max_hops,
+                         mean_hops=mean_hops, max_trips=max_trips,
+                         mean_trips=mean_trips))
         if not (all(vs_loop.values()) and all(vs_plain.values())):
             raise AssertionError(f"beam kernel disagrees: {rows[-1]}")
         if (B, rho, tier) == (1, 1.0, False):
@@ -1106,22 +1345,16 @@ def phase_beam(dev, idx, queries):
             plain_ms = median_ms(lambda: beam_search_ref(*args, **opt, **kw),
                                  [()] * 3, warmup=1)
             timed = dict(err=err, ms=ms, plain_ms=plain_ms, stats=stats,
-                         kw=kw, rows=_beam_rows(cfg, snap, routable, ep, got))
-    # bytes the search must move, each distinct row read once over the
-    # whole block: the adjacency rows of the expanded nodes, the vector
-    # rows of the fetched candidates (the entries' distances come in),
-    # the 4-byte SimHash words and the live byte of every candidate that
-    # was eligible; the queries with their codes, norms and entries; and
-    # the outputs (heap, stats, heat lanes)
+                         kw=kw, rows=_beam_rows(cfg, snap, routable, ep, got),
+                         us_per_trip=1e3 * ms / max_trips,
+                         max_trips=max_trips)
     n_adj, n_vec, n_code = timed["rows"]
-    iter_cap = beam_iter_cap(2 * ef, 1, ef)
-    b_bytes = (4 * cfg.M * n_adj + 4 * DIM * n_vec
-               + (4 * cfg.words + 1) * n_code
-               + N_QUERIES * (4 * DIM + 4 * cfg.words + 12)
-               + N_QUERIES * (8 * ef + 16 + iter_cap * (4 + cfg.M)))
+    b_bytes = _beam_bytes(cfg, timed["rows"])
     emit({"phase": "beam", "runs": rows, "stats_totals": timed["stats"],
           "distinct_rows": dict(adjacency=n_adj, vectors=n_vec, codes=n_code),
-          "bytes": b_bytes})
+          "bytes": b_bytes, "ms": timed["ms"],
+          "max_trips": timed["max_trips"],
+          "us_per_trip": timed["us_per_trip"]})
     return dict(
         name="beam", route="cuda",
         source="src/repro_torch/kernels/csrc/beam.cu",
@@ -1369,6 +1602,8 @@ def main() -> int:
     shapes_only = sys.argv[1:2] == ["--kernel-shapes"]
     src = Path(sys.argv[2]).resolve() if shapes_only and len(sys.argv) > 2 \
         else SRC
+    ab_parent = Path(sys.argv[2]).resolve() \
+        if sys.argv[1:2] == ["--beam-ab"] and len(sys.argv) > 2 else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1407,8 +1642,12 @@ def main() -> int:
     if shapes_only:
         from repro_torch.kernels.gather_l2.ops import gather_l2
         from repro_torch.kernels.l2_distance.ops import l2_distance
+        from repro_torch.kernels.simhash.ops import simhash_encode
         emit({"phase": "kernel_shapes", "src": str(src),
-              **kernel_shapes(dev, gather_l2, l2_distance)})
+              **kernel_shapes(dev, gather_l2, l2_distance, simhash_encode)})
+        return 0
+    if ab_parent is not None:
+        beam_ab(dev, ab_parent)
         return 0
 
     kernels = phase_kernels(dev)

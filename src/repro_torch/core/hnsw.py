@@ -179,8 +179,28 @@ def _fma32(a, b, c):
 def _norm(x: torch.Tensor) -> torch.Tensor:
     """Row norms sqrt(sum(x*x)) with a correctly rounded square root, as
     the reference's: PyTorch's CPU f32 sqrt can be one ulp off, so the
-    root is taken in f64 (exact for an f32 input) and rounded once."""
-    return torch.sqrt((x * x).sum(-1).double()).float()
+    root is taken in f64 (exact for an f32 input) and rounded once.  The
+    sum of squares is the distance to the origin through the gather
+    kernel, so a norm has the same bits on every device."""
+    rows = x.reshape(-1, x.shape[-1]).contiguous()
+    origin = torch.zeros((1, rows.shape[1]), dtype=torch.float32,
+                         device=x.device)
+    sq = gather_l2(rows, origin, torch.zeros((rows.shape[0], 1), dtype=_I32,
+                                             device=x.device))
+    return torch.sqrt(sq.double()).float().reshape(x.shape[:-1])
+
+
+def _gram(x: torch.Tensor) -> torch.Tensor:
+    """x @ x.T with each dot product summed column by column, one rounded
+    product and one rounded add at a time: the same bits on every device
+    (a BLAS product sums in an order of its own, so on float data the
+    card and the CPU would pick other in-batch neighbors)."""
+    acc = torch.zeros((x.shape[0], x.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for c in range(x.shape[1]):
+        col = x[:, c]
+        acc = acc + col[:, None] * col[None, :]
+    return acc
 
 
 def _mean_update(mean: float, n_live: int, xnorm: float) -> np.float32:
@@ -215,6 +235,15 @@ def _last_writer(keys: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     eq = keys[:, None] == keys[None, :]
     last = torch.where(eq, pos[None, :], -1).amax(1)
     return vals[last]
+
+
+def _row_dists(vectors: torch.Tensor, qs: torch.Tensor,
+               ids: torch.Tensor) -> torch.Tensor:
+    """Squared L2 from each row of qs [n, dim] to vectors[ids] (ids [n, m],
+    +inf where ids < 0), through the gather kernel: every distance of the
+    update paths sums in `row_dist.cuh`'s order, on the card and in its
+    plain version on the CPU, so both devices write the same graph."""
+    return gather_l2(qs.contiguous(), vectors, ids.to(_I32).contiguous())
 
 
 def _dist_fn(state: HNSWState, qs: torch.Tensor):
@@ -335,8 +364,8 @@ def _diversity_topm(ids: torch.Tensor, dists: torch.Tensor,
     ids [b, C], dists [b, C] -> (ids [b, m], dists [b, m]).  A candidate
     is kept only if it is closer to the base point than to every
     already-kept neighbor; leftover slots take the nearest pruned
-    candidates.  Rows go 256 at a time to bound the [b, C, C, dim]
-    pairwise block.
+    candidates.  Rows go 256 at a time to bound the [b, C, C] pairwise
+    block.
     """
     outs = [_diversity_topm_block(ids[s:s + 256], dists[s:s + 256],
                                   vectors, m)
@@ -345,12 +374,20 @@ def _diversity_topm(ids: torch.Tensor, dists: torch.Tensor,
             torch.cat([o[1] for o in outs]))
 
 
+def _pair_dists(vectors: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """pair[b, i, j] = |v[ids[b, i]] - v[ids[b, j]]|^2 for ids [b, C]
+    (+inf where ids[b, j] < 0), one `_row_dists` call over the b*C rows."""
+    b, c = ids.shape
+    cv = vectors[ids.clamp_min(0).long()].reshape(b * c, -1)
+    cols = ids[:, None, :].expand(b, c, c).reshape(b * c, c)
+    return _row_dists(vectors, cv, cols).reshape(b, c, c)
+
+
 def _diversity_topm_block(ids, dists, vectors, m):
     order = torch.sort(dists, dim=1, stable=True).indices
     ids, dists = ids.gather(1, order), dists.gather(1, order)
     c = ids.shape[1]
-    cv = vectors[ids.clamp_min(0).long()]                  # [b, C, dim]
-    pair = ((cv[:, :, None, :] - cv[:, None, :, :]) ** 2).sum(-1)
+    pair = _pair_dists(vectors, ids)
     valid = torch.isfinite(dists) & (ids >= 0)
     kept = torch.zeros_like(valid)
     for i in range(c):
@@ -374,7 +411,8 @@ def _evict_slot(rows: torch.Tensor, d_new: torch.Tensor) -> torch.Tensor:
 def _backlink(rows: torch.Tensor, vectors: torch.Tensor, x: torch.Tensor,
               i: int) -> torch.Tensor:
     """Each neighbor row with its evicted slot set to the new node i."""
-    d_new = ((vectors[rows.clamp_min(0).long()] - x) ** 2).sum(-1)
+    d_new = _row_dists(vectors, x.reshape(1, -1),
+                       rows.reshape(1, -1)).reshape(rows.shape)
     slots = _evict_slot(rows, d_new)
     new_rows = rows.clone()
     new_rows[torch.arange(rows.shape[0], device=rows.device), slots] = i
@@ -679,7 +717,7 @@ def insert_batch(cfg: HNSWConfig, state: HNSWState, xs: torch.Tensor,
     # nearest *earlier* items, whose ids base_id + j are deterministic
     sq = xnorms * xnorms
     bb = _fma32(xnorms[None, :], xnorms[None, :], sq[:, None]) \
-        - 2.0 * (xs @ xs.T)
+        - 2.0 * _gram(xs)
     lower = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev), -1)
     bb = torch.where(lower & valid[None, :], bb, INF)
     m_in = max(1, min(cfg.M, n - 1))
@@ -804,15 +842,14 @@ def _relink(state: HNSWState, cand: torch.Tensor, nbr: torch.Tensor,
     rows are independent.  Returns (rows [len(nbr), m], dists
     [len(nbr), C])."""
     cs = cand.clamp_min(0).long()
-    diff = state.vectors[cs][None, :, :] \
-        - state.vectors[nbr.clamp_min(0).long()][:, None, :]
-    d = (diff * diff).sum(-1)
     bad = (cand[None, :] < 0) | (cand[None, :] == i) \
         | (cand[None, :] == nbr[:, None]) \
         | (state.levels[cs][None, :] < min_level) \
         | state.tombstone[cs][None, :]
-    d = torch.where(bad, INF, d)
-    d = _dedup_to_inf(torch.where(bad, -1, cand[None, :]), d)
+    masked = torch.where(bad, -1, cand[None, :])
+    d = _row_dists(state.vectors, state.vectors[nbr.clamp_min(0).long()],
+                   masked)
+    d = _dedup_to_inf(masked, d)
     top_d, order = stable_topk_asc(d, m)
     return torch.where(torch.isfinite(top_d), cand[order], -1), d
 
@@ -1007,18 +1044,21 @@ def tombstone_batch(cfg: HNSWConfig, state: HNSWState,
 def _diversity_block(vectors: torch.Tensor, cand: torch.Tensor,
                      d: torch.Tensor, m: int) -> torch.Tensor:
     """Blocked keepPruned diversity selection over a [b, C] candidate
-    block, with the pairwise matrix built by matmul (norms + cv@cv^T).
-    `d` must already be +inf for duplicate/invalid candidates."""
+    block (the reference builds the pairwise matrix as norms + cv@cv^T,
+    exact on integer data as the direct sum is).  `d` must already be
+    +inf for duplicate/invalid candidates."""
     order = torch.sort(d, dim=1, stable=True).indices
     ids_s = cand.gather(1, order)
     d_s = d.gather(1, order)
-    cv = vectors[ids_s.clamp_min(0).long()]                 # [b, C, dim]
-    n2 = (cv * cv).sum(-1)
-    pair = n2[:, :, None] + n2[:, None, :] \
-        - 2.0 * torch.bmm(cv, cv.transpose(1, 2))
     valid = torch.isfinite(d_s) & (ids_s >= 0)
+    # sorted by distance, so every valid candidate lies in the first
+    # `c` columns and the rest are never kept: the first m of the
+    # selection order below come out the same without them
+    c = min(cand.shape[1], max(m, int(valid.sum(1).max())))
+    ids_s, d_s, valid = ids_s[:, :c], d_s[:, :c], valid[:, :c]
+    pair = _pair_dists(vectors, ids_s)
     kept = torch.zeros_like(valid)
-    for i in range(cand.shape[1]):
+    for i in range(c):
         dominated = (kept & (pair[:, i, :] < d_s[:, i:i + 1])).any(1)
         space = kept.sum(1) < m
         kept[:, i] = valid[:, i] & ~dominated & space
@@ -1055,9 +1095,8 @@ def _consolidate_rows(vectors: torch.Tensor, adj: torch.Tensor,
         cand = torch.cat([r, torch.where(exp_ok, exp, -1)], 1)
         cs = cand.clamp_min(0).long()
         bad = (cand < 0) | (cand == blk[:, None]) | ~member[cs]
-        d = ((vectors[cs] - vectors[blk][:, None, :]) ** 2).sum(-1)
-        d = torch.where(bad, INF, d)
-        d = _dedup_to_inf(torch.where(bad, -1, cand), d)
+        masked = torch.where(bad, -1, cand)
+        d = _dedup_to_inf(masked, _row_dists(vectors, vectors[blk], masked))
         new_adj[blk] = _diversity_block(vectors, cand, d, W)
         n_dist += torch.isfinite(d).sum()
     return new_adj, changed, n_dist.to(_I32)

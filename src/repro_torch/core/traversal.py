@@ -185,8 +185,13 @@ def beam_search(
 
         # -- SimHash prefilter (Eq. 5-6), in-memory, whole block: counts
         #    against the codes of the row's ids (out-of-range ids are
-        #    clamped by the kernel and masked by `eligible`) -------------
-        cols = collision_count_rows(code_q, codes, row.contiguous(), m_bits)
+        #    clamped by the kernel and masked by `eligible`).  Without the
+        #    filter and the sampling cap nothing reads them, so they are
+        #    not counted (the reference computes them and its compiled
+        #    form drops the dead value) ---------------------------------
+        if use_filter or not static_all:
+            cols = collision_count_rows(code_q, codes, row.contiguous(),
+                                        m_bits)
         delta_sq = beam_d[:, k - 1]
         if use_filter:
             cos = simhash.cos_from_l2(delta_sq, q_norm, mean_norm)

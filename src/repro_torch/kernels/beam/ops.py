@@ -18,11 +18,11 @@ from repro_torch.kernels.beam.ref import beam_iter_cap, beam_search_ref
 
 __all__ = ["fused_beam_search", "beam_iter_cap"]
 
-#: what the kernel takes: it holds the heap, the B*M block and the
-#: visited set of one query in shared memory, one thread per candidate
+#: what the kernel takes: one warp per query holds its heap (twice), its
+#: B*M block and its visited set in shared memory, at most 4 candidates a
+#: lane
 MAX_EF = 256
 MAX_BLOCK = 128          # B * M
-MAX_MERGE = 512          # ef + B * M
 MAX_HASH_BITS = 15       # visited slots (128 KiB)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,7 +46,7 @@ def _hash_bits(iter_cap: int, block: int) -> int:
     """log2 of the visited set's slots: the set holds at most the entry
     and every fetched id, and stays at most half full."""
     need = 2 * (1 + iter_cap * block)
-    return max(1, (need - 1).bit_length())
+    return max(2, (need - 1).bit_length())
 
 
 def _check(name, t, dtype, shape):
@@ -130,10 +130,10 @@ def fused_beam_search(qs, entries, entry_dists, adjacency, vectors, codes,
     iter_cap = beam_iter_cap(max_iters, n_expand, ef)
     hash_bits = _hash_bits(iter_cap, B * M)
     if not 1 <= k <= ef <= MAX_EF or B * M > MAX_BLOCK \
-            or ef + B * M > MAX_MERGE or hash_bits > MAX_HASH_BITS:
+            or hash_bits > MAX_HASH_BITS:
         raise ValueError(
             f"fused_beam_search: the kernel takes 1 <= k <= ef <= "
-            f"{MAX_EF}, B*M <= {MAX_BLOCK}, ef + B*M <= {MAX_MERGE} and "
+            f"{MAX_EF}, B*M <= {MAX_BLOCK} and "
             f"1 + iter_cap*B*M <= {2 ** (MAX_HASH_BITS - 1)} visited ids; "
             f"got k={k}, ef={ef}, B*M={B * M}, iter_cap={iter_cap}")
 

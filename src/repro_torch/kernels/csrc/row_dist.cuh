@@ -107,11 +107,14 @@ __device__ __forceinline__ float l2_q8(const float* __restrict__ q,
 // holds and adds its partner's partial of them (own + partner, as
 // warp_sum adds), so every row combines the same lane pairs at the same
 // levels; levels 2 and 1 are a butterfly on the one row left.  9 shuffles
-// instead of 40.  Each step issues the 8 rows' loads, unconditionally,
-// before the first sum, so a warp keeps 8 rows in flight (a caller points
-// a row it skips at any readable row of d floats, the query itself, and
-// ignores its sum).  Returns, in every lane, the total of row
-// row_of_lane(lane): each row's total lands in the 4 lanes lane & ~3.
+// instead of 40.  Each step issues the rows' loads, unconditionally,
+// before the first sum, so a warp keeps every row in flight (a caller
+// points a row it skips at any readable row of d elements, and ignores
+// its sum).  Returns, in every lane, the total of row row_of_lane(lane):
+// each row's total lands in the 4 lanes lane & ~3.  The N-row forms
+// (N a multiple of 8) load N rows per step and return row
+// 8 * g + row_of_lane(lane) in out[g]; l2_q8_rows is the same for the
+// int8 lane, each row summed exactly as l2_q8 sums it.
 __device__ __forceinline__ int row_of_lane(int lane) {
   return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
 }
@@ -139,24 +142,38 @@ __device__ __forceinline__ float reduce_rows8(const float (&v)[8], int lane) {
   return s;
 }
 
-template <bool kVec4>
-__device__ __forceinline__ float l2_f32_rows8(const float* __restrict__ q,
-                                              const float* const (&rows)[8],
-                                              int d, int lane) {
-  float acc[8];
+template <int N>
+__device__ __forceinline__ void reduce_rows(const float (&acc)[N], int lane,
+                                            float (&out)[N / 8]) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+  for (int g = 0; g < N / 8; ++g) {
+    float v[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v[r] = acc[8 * g + r];
+    out[g] = reduce_rows8(v, lane);
+  }
+}
+
+template <int N, bool kVec4>
+__device__ __forceinline__ void l2_f32_rows(const float* __restrict__ q,
+                                            const float* const (&rows)[N],
+                                            int d, int lane,
+                                            float (&out)[N / 8]) {
+  static_assert(N % 8 == 0, "rows come in groups of 8");
+  float acc[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) acc[r] = 0.f;
   if (kVec4) {
     const float4* q4 = reinterpret_cast<const float4*>(q);
     for (int j = lane; j < d / 4; j += 32) {
       const float4 a = __ldg(q4 + j);
-      float4 c[8];
+      float4 c[N];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < N; ++r) {
         c[r] = __ldg(reinterpret_cast<const float4*>(rows[r]) + j);
       }
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < N; ++r) {
         const float dx = a.x - c[r].x, dy = a.y - c[r].y;
         const float dz = a.z - c[r].z, dw = a.w - c[r].w;
         acc[r] += dx * dx;
@@ -170,18 +187,78 @@ __device__ __forceinline__ float l2_f32_rows8(const float* __restrict__ q,
     for (int j = lane; j < d / w; j += 32) {
       for (int e = j * w; e < (j + 1) * w; ++e) {
         const float qe = __ldg(q + e);
-        float c[8];
+        float c[N];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) c[r] = __ldg(rows[r] + e);
+        for (int r = 0; r < N; ++r) c[r] = __ldg(rows[r] + e);
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
+        for (int r = 0; r < N; ++r) {
           const float diff = qe - c[r];
           acc[r] += diff * diff;
         }
       }
     }
   }
-  return reduce_rows8(acc, lane);
+  reduce_rows<N>(acc, lane, out);
+}
+
+template <bool kVec4>
+__device__ __forceinline__ float l2_f32_rows8(const float* __restrict__ q,
+                                              const float* const (&rows)[8],
+                                              int d, int lane) {
+  float out[1];
+  l2_f32_rows<8, kVec4>(q, rows, d, lane, out);
+  return out[0];
+}
+
+template <int N, bool kVec4>
+__device__ __forceinline__ void l2_q8_rows(const float* __restrict__ q,
+                                           const int8_t* const (&rows)[N],
+                                           const float (&scale)[N], int d,
+                                           int lane, float (&out)[N / 8]) {
+  static_assert(N % 8 == 0, "rows come in groups of 8");
+  float acc[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) acc[r] = 0.f;
+  if (kVec4) {
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int j = lane; j < d / 4; j += 32) {
+      const float4 a = __ldg(q4 + j);
+      char4 c[N];
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        c[r] = __ldg(reinterpret_cast<const char4*>(rows[r]) + j);
+      }
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        const float s = scale[r];
+        const float dx = a.x - __fmul_rn(static_cast<float>(c[r].x), s);
+        const float dy = a.y - __fmul_rn(static_cast<float>(c[r].y), s);
+        const float dz = a.z - __fmul_rn(static_cast<float>(c[r].z), s);
+        const float dw = a.w - __fmul_rn(static_cast<float>(c[r].w), s);
+        acc[r] += dx * dx;
+        acc[r] += dy * dy;
+        acc[r] += dz * dz;
+        acc[r] += dw * dw;
+      }
+    }
+  } else {
+    const int w = d % 4 == 0 ? 4 : 1;
+    for (int j = lane; j < d / w; j += 32) {
+      for (int e = j * w; e < (j + 1) * w; ++e) {
+        const float qe = __ldg(q + e);
+        int8_t c[N];
+#pragma unroll
+        for (int r = 0; r < N; ++r) c[r] = __ldg(rows[r] + e);
+#pragma unroll
+        for (int r = 0; r < N; ++r) {
+          const float diff =
+              qe - __fmul_rn(static_cast<float>(c[r]), scale[r]);
+          acc[r] += diff * diff;
+        }
+      }
+    }
+  }
+  reduce_rows<N>(acc, lane, out);
 }
 
 }  // namespace rowdist

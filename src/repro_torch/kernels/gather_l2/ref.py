@@ -47,8 +47,13 @@ def gather_l2_ref(queries: torch.Tensor, table: torch.Tensor,
     """
     q = queries.to(torch.float32)
     safe = ids.clamp_min(0).long()
-    rows = table[safe].to(torch.float32)                # [B, K, d]
-    d2 = _warp_sq_sum(q[:, None, :] - rows)
+    # queries in chunks of about 2^22 gathered elements, so a large call
+    # (a pairwise block of the update paths) stays small in memory
+    step = max(1, (1 << 22) // max(1, ids.shape[1] * q.shape[1]))
+    d2 = torch.empty(ids.shape, dtype=torch.float32, device=q.device)
+    for s in range(0, q.shape[0], step):
+        rows = table[safe[s:s + step]].to(torch.float32)   # [b, K, d]
+        d2[s:s + step] = _warp_sq_sum(q[s:s + step, None, :] - rows)
     return torch.where(ids >= 0, d2, torch.inf)
 
 

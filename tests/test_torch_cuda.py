@@ -325,6 +325,96 @@ def test_beam_cuda_kernel_matches_loop_route_and_plain(n_expand, rho,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rho", [1.0, 0.5])
+@pytest.mark.parametrize("n_expand", [1, 4])
+@pytest.mark.parametrize("d", [65, 128])
+@pytest.mark.parametrize("bq", [1, 3, 1000])
+def test_beam_cuda_kernel_warp_layout(bq, d, n_expand, rho):
+    """The warp-per-query layout at query counts that leave the last CTA
+    part empty (1, 3) or fill every CTA (1,000), the default M = 16
+    (B = 4: two candidates a lane), a ragged and a float4 width, with the
+    filter on and off, the lazy lane, the tier split and heat recording
+    on and off: bitwise equal to the loop route and the plain version on
+    float data."""
+    dev = _cuda()
+    w = _beam_world(dev, cap=4000, dim=d, M=16, bq=bq, floats=True,
+                    seed=bq + d + n_expand)
+    for use_filter in (True, False):
+        for lanes in ([], ["returnable"],
+                      ["returnable", "resident", "qvecs", "qscale"]):
+            opt = {n: w["opt"][n] for n in lanes}
+            kw = dict(ef=48, k=10, m_bits=64, eps=0.1, rho=rho,
+                      max_iters=96, use_filter=use_filter,
+                      n_expand=n_expand)
+            got = fused_beam_search(*w["args"], **opt, **kw)
+            loop = _loop_route(w["args"], opt, **kw)
+            plain = beam_search_ref(*w["args"], **opt, **kw)
+            torch.cuda.synchronize()
+            for name, a, b, c in zip(("ids", "dists", "stats", "heat_nodes",
+                                      "heat_mask"), got, loop, plain):
+                assert torch.equal(a, b), (name, use_filter, lanes)
+                assert torch.equal(a, c), (name, use_filter, lanes)
+            assert int(got[2][:, 3].max()) > 1
+            off = fused_beam_search(*w["args"], **opt, **kw,
+                                    record_heat=False)
+            for a, b in zip(off[:3], got[:3]):
+                assert torch.equal(a, b)
+            assert bool((off[3] == -1).all()) and not bool(off[4].any())
+
+
+def _update_inputs(seed, cap=2000, d=128, M=16):
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(cap, d)).astype(np.float32)
+    return rng, vecs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["backlink", "diversity_topm",
+                                  "consolidate_rows", "relink", "norm_gram"])
+def test_update_paths_card_equals_cpu_on_float_rows(site):
+    """The update paths' distances go through gather_l2 on the card and
+    its plain version on the CPU: the same bits on float rows, so both
+    devices pick the same slots, neighbours and repaired rows."""
+    from repro_torch.core import hnsw
+    dev = _cuda()
+    rng, vecs = _update_inputs(len(site))
+    cap, d = vecs.shape
+    M = 16
+
+    def run(device):
+        v = torch.from_numpy(vecs).to(device)
+        if site == "backlink":
+            rows = torch.from_numpy(rng_rows).to(device)
+            return (hnsw._backlink(rows, v, v[7], 1999),)
+        if site == "diversity_topm":
+            ids = torch.from_numpy(rng_ids).to(device)
+            dists = gather_l2(v[:300], v, ids)
+            return hnsw._diversity_topm(ids, dists, v, M)
+        if site == "consolidate_rows":
+            adj = torch.from_numpy(rng_adj).to(device)
+            tomb = torch.from_numpy(rng_tomb).to(device)
+            return hnsw._consolidate_rows(v, adj, tomb, ~tomb, ~tomb, M, 512)
+        if site == "relink":
+            cfg = hnsw.HNSWConfig(cap=cap, dim=d)
+            st = hnsw.init(cfg, torch.zeros((cfg.m_bits, d)), device)
+            st = st._replace(vectors=v)
+            st.levels[:] = 0
+            cand = torch.from_numpy(rng_cand).to(device)
+            return hnsw._relink(st, cand, cand[-M:], 5, 0, M)
+        return hnsw._norm(v), hnsw._gram(v[:1024])
+
+    rng_rows = rng.integers(-1, cap, (M, M)).astype(np.int32)
+    rng_ids = rng.integers(-1, cap, (300, 3 * M)).astype(np.int32)
+    rng_adj = rng.integers(-1, cap, (cap, M)).astype(np.int32)
+    rng_tomb = rng.random(cap) < 0.02
+    rng_cand = rng.integers(-1, cap, (M * M + M,)).astype(np.int32)
+    card, cpu = run(dev), run("cpu")
+    torch.cuda.synchronize()
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b), site
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m_bits", [32, 64, 128])
 @pytest.mark.parametrize("d", [16, 65, 128])
 def test_simhash_cuda_kernels_match_plain(d, m_bits):
