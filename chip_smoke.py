@@ -7,17 +7,23 @@ timing of `gather_l2`, `l2_distance` and `simhash_encode`
 (`kernel_shapes`), for the port under SRC (default: this checkout's
 src/), so two trees can be timed in one call on one card.
 `python3 chip_smoke.py --beam-ab SRC` times this checkout's beam kernel
-against SRC's in one process (`beam_ab`).
+against SRC's in one process (`beam_ab`).  `python3 chip_smoke.py
+--fetch-ab SRC` times a loop trip's prefilter and fetch, SRC's separate
+`collision_count_rows` and gather launches against this checkout's one
+`prefilter_gather`, and SRC's `gather_l2_q8` against this checkout's
+(`fetch_ab`).
 
 Phases, each printing one JSON line (a failed phase raises, so the
 script exits non-zero and prints no result):
 
   env        nvidia-smi's card name and power limit, torch and CUDA versions
   build      compile the port's CUDA kernels from src/repro_torch/kernels/csrc
-  kernels    gather_l2, gather_l2_q8, l2_distance and the three SimHash
+  kernels    gather_l2, gather_l2_q8, l2_distance, the three SimHash
              entries (simhash_encode, collision_count and its gathered
-             form collision_count_rows) against their plain PyTorch
-             versions on the card, at the main path's shapes; median
+             form collision_count_rows) and prefilter_gather (a loop
+             trip's prefilter and fetch in one launch, both lanes)
+             against their plain PyTorch versions on the card, at the
+             main path's shapes; median
              times, bounds, library yardsticks; `gather_l2` and
              `l2_distance` also timed at every shape class the main
              path launches them at (`kernel_shapes`: the gather's
@@ -33,9 +39,10 @@ script exits non-zero and prints no result):
              maintain("tier") -> tiered search (snapshot and fused routes),
              with recall@10 against brute_force_knn; kernel launch counts
              are zeroed before and read after every step (every search
-             launches simhash_encode, every loop-route search
-             collision_count_rows), and gather_l2's and l2_distance's
-             by the kernel variant each call takes; the fused route's
+             launches simhash_encode, every loop-route search and every
+             insert_batch prefilter_gather and no collision_count_rows),
+             and gather_l2's, l2_distance's and prefilter_gather's by
+             the kernel variant each call takes; the fused route's
              ids equal the snapshot route's at every step;
              insert_batch's phase B (the upper connects: filter off,
              rho = 1) launches no collision_count_rows; then the
@@ -51,9 +58,10 @@ script exits non-zero and prints no result):
              compaction and a reordering (perm and every state field
              too); a float-data run (`make_clustered_vectors`) through
              insert_batch and consolidate, every state field bitwise;
-             the full-size queries re-run with the kernels swapped
-             for their plain versions, and on the CPU from a copy of the
-             final state, ids and dists bitwise
+             the full-size queries re-run with the kernels (the fused
+             prefilter_gather too) swapped for their plain versions,
+             and on the CPU from a copy of the final state, ids and
+             dists bitwise
   profile    torch.profiler over one search on each route and one
              insert_batch: the device's busy share and the kernels that
              take its time
@@ -434,6 +442,21 @@ def phase_kernels(dev):
             q8_plain = median_ms(
                 lambda i: gather_l2_q8_ref(q, qt, sc_real, i),
                 [(i,) for i in id_sets])
+    # the chunk edges of the redesigned cold-lane kernel (8 ids a warp),
+    # bitwise on float data
+    qt = torch.randint(-127, 128, (N_BASE, DIM), generator=g, device=dev,
+                       dtype=torch.int8)
+    sc = 0.1 * torch.rand((N_BASE,), generator=g, device=dev)
+    for b, k in ((1, 1), (1, 7), (1, 9), (1, 16), (N_QUERIES, 7),
+                 (N_QUERIES, 9), (N_QUERIES, 64)):
+        ids = torch.randint(-1, N_BASE, (b, k), generator=g,
+                            device=dev).int()
+        q = torch.randn((b, DIM), generator=g, device=dev)
+        ok = torch.equal(gather_l2_q8(q, qt, sc, ids),
+                         gather_l2_q8_ref(q, qt, sc, ids))
+        checks.append(dict(kernel="gather_l2_q8", b=b, d=DIM, k=k, ok=ok))
+        if not ok:
+            raise AssertionError(f"gather_l2_q8 disagrees: {checks[-1]}")
     q8_bytes = (4 * N_QUERIES * DIM + 2 * 4 * N_QUERIES * 16
                 + float(np.median(rows)) * (DIM + 4))
     q8_flops = 4 * N_QUERIES * 16 * DIM
@@ -482,12 +505,13 @@ def phase_kernels(dev):
     l_bytes = 4 * (N_QUERIES * DIM + N_BASE * DIM + N_QUERIES * N_BASE)
     l_bound = 1e3 * max(l_bytes / HBM_BYTES_PER_S, l_flops / F32_FLOPS)
     simhash_rows = _simhash_kernels(dev, g, checks)
+    fused_row = _prefilter_kernel(dev, g, checks)
     emit({"phase": "kernels", "checks": checks})
     from repro_torch.kernels.simhash.ops import simhash_encode
     shapes = kernel_shapes(dev, gather_l2, l2_distance, simhash_encode)
     emit({"phase": "kernel_shapes", **shapes})
     simhash_rows["simhash_encode"]["shapes"] = shapes["encode"]
-    return {**simhash_rows,
+    return {**simhash_rows, FUSED_FETCH: fused_row,
         "gather_l2": dict(
             name="gather_l2", route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
@@ -633,14 +657,148 @@ def _simhash_kernels(dev, g, checks):
     }
 
 
+def _trip_operands(dev, g, b, n, d, n_rows):
+    """A loop trip's fetch operands over `n_rows` rows (ids drawn from the
+    first N_BASE, fresh each call): f32 queries and table, int64 SimHash
+    codes (m = 64), int32 rows, eligible bytes (3 in 4, as a trip's
+    unvisited live neighbours) and a threshold that 96 % of random codes
+    clear (a trip filters about 4 % of the eligible, PERF.md §6), -inf on
+    every tenth query (a beam not yet full); the tier lanes: half the
+    rows resident, int8 rows, real scales."""
+    import torch
+    table = torch.randn((n_rows, d), generator=g, device=dev)
+    qs = torch.randn((b, d), generator=g, device=dev)
+    codes = torch.randint(0, 2 ** 32, (n_rows, 2), generator=g, device=dev)
+    code_q = torch.randint(0, 2 ** 32, (b, 2), generator=g, device=dev)
+    thr = torch.full((b,), 25.0, device=dev)
+    thr[::10] = -float("inf")
+    tier = (torch.rand((n_rows,), generator=g, device=dev) < 0.5,
+            torch.randint(-127, 128, (n_rows, d), generator=g, device=dev,
+                          dtype=torch.int8),
+            0.1 * torch.rand((n_rows,), generator=g, device=dev))
+
+    def blocks(count):
+        out = []
+        for _ in range(count):
+            row = torch.randint(0, min(N_BASE, n_rows), (b, n), generator=g,
+                                device=dev).int()
+            out.append((row, torch.rand((b, n), generator=g, device=dev)
+                        < 0.75))
+        return out
+    return (qs, table, code_q, codes, thr), tier, blocks
+
+
+def _fetch_bytes(base, tier, row, eligible, mask):
+    """Bytes one prefilter_gather call must move, each distinct row once:
+    ids, eligible bytes, the code rows of the distinct eligible ids (and
+    their resident bytes under the tier), the rows of the distinct
+    survivors (4 d f32, d + 4 int8 with its scale), the queries, their
+    codes and thresholds, and the mask and distance outputs."""
+    import torch
+    qs, codes = base[0], base[3]
+    b, n = row.shape
+    d, words = qs.shape[1], codes.shape[1]
+    elig_ids = torch.unique(row[eligible])
+    fetched = torch.unique(row[mask])
+    n_bytes = (4 + 1) * b * n + 8 * words * elig_ids.numel() \
+        + b * (4 * d + 8 * words + 4) + (1 + 4) * b * n
+    if tier is None:
+        return n_bytes + 4 * d * fetched.numel()
+    res = tier[0][fetched.long()]
+    return n_bytes + elig_ids.numel() + 4 * d * int(res.sum()) \
+        + (d + 4) * int((~res).sum())
+
+
+def _prefilter_kernel(dev, g, checks):
+    """prefilter_gather against its plain version on the card, bitwise on
+    float data, mask and distances, at a search trip's [1,000, 16], an
+    insert batch's [1,024, 16], a lone item's [1, 16] and n_expand = 4's
+    [1,000, 64], d in {128, 65}, both lanes; timed at [1,000, 16] over the
+    cap-sized table (fresh rows every call), f32 lane and tier, beside
+    its bound (`_fetch_bytes`: the run's own survivors) and the plain
+    version.  No single PyTorch call computes the function."""
+    import torch
+
+    from repro_torch.kernels.prefilter_gather.ops import prefilter_gather
+    from repro_torch.kernels.prefilter_gather.ref import prefilter_gather_ref
+
+    for d, n_rows in ((DIM, N_BASE), (65, 20_000)):
+        base, tier_lanes, blocks = _trip_operands(dev, g, N_QUERIES + 24, 64,
+                                                  d, n_rows)
+        for b, n in ((N_QUERIES, 16), (INSERT_WIDTH, 16), (1, 16),
+                     (N_QUERIES, 64)):
+            qs, table, code_q, codes, thr = base
+            args = (qs[:b], table, code_q[:b], codes)
+            row, elig = blocks(1)[0]
+            row, elig = row[:b, :n].contiguous(), elig[:b, :n].contiguous()
+            for tier in (None, tier_lanes):
+                got = prefilter_gather(*args, row, elig, thr[:b], tier=tier)
+                want = prefilter_gather_ref(*args, row, elig, thr[:b],
+                                            tier=tier)
+                ok = torch.equal(got[0], want[0]) \
+                    and torch.equal(got[1], want[1])
+                checks.append(dict(kernel=FUSED_FETCH, b=b, n=n, d=d,
+                                   tier=tier is not None, ok=ok,
+                                   survivors=int(got[0].sum())))
+                if not ok:
+                    raise AssertionError(f"{FUSED_FETCH} disagrees: "
+                                         f"{checks[-1]}")
+    base, tier_lanes, blocks = _trip_operands(dev, g, N_QUERIES, 16, DIM, CAP)
+    sets = blocks(30)
+    shapes = []
+    for tier in (None, tier_lanes):
+        def call(row, elig):
+            return prefilter_gather(*base[:4], row, elig, base[4], tier=tier)
+
+        def plain(row, elig):
+            return prefilter_gather_ref(*base[:4], row, elig, base[4],
+                                        tier=tier)
+        ms = median_ms(call, sets)
+        plain_ms = median_ms(plain, sets)
+        n_bytes = float(np.median([_fetch_bytes(base, tier, r, e,
+                                                call(r, e)[0])
+                                   for r, e in sets]))
+        got, want = call(*sets[0]), plain(*sets[0])
+        fin = torch.isfinite(want[1])
+        shapes.append(dict(
+            shape=f"[{N_QUERIES}, 16] d={DIM} table={CAP}x{DIM}",
+            **{"class": "f32" if tier is None else "tier"},
+            ms=ms, plain_ms=plain_ms,
+            bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+            max_abs_err=float((got[1][fin] - want[1][fin]).abs().max()),
+            survivors_per_call=float(got[0].sum())))
+    del base, tier_lanes, sets
+    f32 = shapes[0]
+    return dict(
+        name=FUSED_FETCH, route="cuda",
+        source="src/repro_torch/kernels/csrc/gather_l2.cu",
+        # on the loop trip it stands for the gathered collision count and
+        # the gathers of both lanes
+        replaces="src/repro/kernels/simhash/kernel.py:70",
+        fuses=["src/repro/kernels/simhash/kernel.py:70",
+               "src/repro/kernels/gather_l2/kernel.py:38",
+               "src/repro/kernels/gather_l2/kernel.py:79"],
+        max_abs_err=f32["max_abs_err"], ms=f32["ms"],
+        plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by="bytes", library_ms=None, shapes=shapes)
+
+
 KERNEL_NAMES = ("gather_l2", "gather_l2_q8", "l2_distance", "beam",
-                "simhash_encode", "collision_count_rows", "collision_count")
+                "simhash_encode", "collision_count_rows", "collision_count",
+                "prefilter_gather")
 # the wrappers that also count their launches by shape class
-BY_CLASS = ("gather_l2", "l2_distance")
+BY_CLASS = ("gather_l2", "l2_distance", "prefilter_gather")
 # the all-pairs collision count lies on no path of the system (the
-# reference's core runs only the plain form too); it is held against its
-# plain version in the kernels phase
-OFF_PATH = ("collision_count",)
+# reference's core runs only the plain form too).  On the main path's
+# configuration (filter on, rho = 1) every loop trip's prefilter and
+# fetch are one prefilter_gather launch, so the standalone gathered
+# count and the cold-lane gather serve only the sampling cap (rho < 1,
+# the `beam` phase's loop runs); all three are held against their plain
+# versions and timed in the kernels phase
+OFF_PATH = ("collision_count", "collision_count_rows", "gather_l2_q8")
+#: the loop trip's fused prefilter + fetch, on every loop-route search
+#: and every insert_batch's phase A
+FUSED_FETCH = "prefilter_gather"
 
 
 def launch_counters():
@@ -648,6 +806,7 @@ def launch_counters():
     from repro_torch.kernels.beam.ops import fused_beam_search
     from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
     from repro_torch.kernels.l2_distance.ops import l2_distance
+    from repro_torch.kernels.prefilter_gather.ops import prefilter_gather
     from repro_torch.kernels.simhash.ops import (
         collision_count,
         collision_count_rows,
@@ -655,7 +814,8 @@ def launch_counters():
     )
     return dict(zip(KERNEL_NAMES, (gather_l2, gather_l2_q8, l2_distance,
                                    fused_beam_search, simhash_encode,
-                                   collision_count_rows, collision_count)))
+                                   collision_count_rows, collision_count,
+                                   prefilter_gather)))
 
 
 def counted(step, fn):
@@ -706,10 +866,12 @@ def check_result(res, queries, vectors, live) -> None:
 def search_step(name, index, snap, queries, truth, vectors, live, dels=(),
                 id_map=None):
     """One counted 1,000-query search, checked and emitted: no deleted id
-    returned, a well-formed result (`check_result`), the SimHash kernels
-    launched (the query encode on every route, the gathered collision
-    count on the loop routes), recall@10 against `truth` (ids mapped
-    through `id_map` first, where the index renumbered them)."""
+    returned, a well-formed result (`check_result`), the SimHash query
+    encode launched on every route, on the loop routes `prefilter_gather`
+    launched and the standalone `collision_count_rows` not (every trip's
+    prefilter runs inside the fused fetch, so nothing counts twice),
+    recall@10 against `truth` (ids mapped through `id_map` first, where
+    the index renumbered them)."""
     from repro_torch.core.backend import SearchParams
     from repro_torch.core.index import recall_at_k
     res, rec = counted(name, lambda: index.search(
@@ -729,10 +891,12 @@ def search_step(name, index, snap, queries, truth, vectors, live, dels=(),
     if rec["recall_at_10"] < RECALL_FLOOR:
         raise AssertionError(f"recall too low: {rec}")
     fused = index.cfg.fused_beam and snap
-    for kname in ("simhash_encode",) + (() if fused
-                                        else ("collision_count_rows",)):
+    for kname in ("simhash_encode",) + (() if fused else (FUSED_FETCH,)):
         if rec["launches"][kname] == 0:
             raise AssertionError(f"{name} never launched {kname}")
+    if rec["launches"]["collision_count_rows"]:
+        raise AssertionError(f"{name} launched collision_count_rows beside "
+                             f"{FUSED_FETCH}: {rec['launches']}")
     return res, rec
 
 
@@ -855,9 +1019,13 @@ def phase_main_path(dev):
                    phase_b_collision_count_rows=phase_b["launches"])
         emit(rec)
         # phase B's upper connects search with the filter off and rho = 1,
-        # where no decision reads a collision count
+        # where no decision reads a collision count; phase A's trips count
+        # theirs inside the fused fetch
         if phase_b["calls"] == 0 or phase_b["launches"]:
             raise AssertionError(f"insert_batch phase B: {phase_b}")
+        if rec["launches"]["collision_count_rows"] \
+                or not rec["launches"][FUSED_FETCH]:
+            raise AssertionError(f"insert_batch phase A: {rec['launches']}")
     allv = data
     n_all = len(allv)
     truth_all, rec = step("ground_truth_all",
@@ -952,6 +1120,7 @@ def phase_parity(dev, idx, queries, truth_live, final):
     from repro_torch.core.hnsw import HNSWConfig
     from repro_torch.core.index import LSMVecIndex, recall_at_k
     from repro_torch.kernels.gather_l2.ref import gather_l2_ref
+    from repro_torch.kernels.prefilter_gather.ref import prefilter_gather_ref
     from repro_torch.kernels.simhash.ref import (
         collision_count_rows_ref,
         simhash_encode_ref,
@@ -1034,6 +1203,7 @@ def phase_parity(dev, idx, queries, truth_live, final):
     # full size: the final index's queries with every kernel of the loop
     # routes swapped for its plain version on the card
     swaps = [(hnsw, "gather_l2", gather_l2_ref),
+             (hnsw, "prefilter_gather", prefilter_gather_ref),
              (traversal, "gather_l2", gather_l2_ref),
              (traversal, "collision_count_rows", collision_count_rows_ref),
              (simhash, "simhash_encode", simhash_encode_ref)]
@@ -1278,12 +1448,178 @@ def beam_ab(dev, parent_src):
         raise AssertionError(f"the two beam kernels disagree: {same}")
 
 
+def fetch_ab(dev, parent_src):
+    """`--fetch-ab SRC`: a loop trip's SimHash prefilter and fetch at a
+    search's [1,000, 16] over the cap-sized table (d = 128, m = 64, fresh
+    rows every call; `_trip_operands`), SRC's kernels against this
+    tree's, in one process, each timed in the order SRC, this, this, SRC:
+
+    - kernels alone: SRC's `collision_count_rows` then its `gather_l2`
+      (tier: and its `gather_l2_q8`) over the survivors, against this
+      tree's one `prefilter_gather`;
+    - the whole trip: SRC's `traversal.beam_search` sequence (count,
+      threshold masks, `where`, then the gather; tier: the resident
+      lookup, the lane masks, both gathers and their min, as
+      `hnsw._tier_dist_fn`), against this tree's (threshold fold, one
+      `prefilter_gather`, `where`);
+    - `gather_l2_q8` alone, SRC's and this tree's, on the same cold ids;
+    - the device launches of one trip of each, by torch.profiler.
+
+    SRC's `gather_l2.cu` and `simhash.cu` are compiled with this tree's
+    flags and called through this tree's wrappers (their C interfaces
+    are unchanged); the two trips must agree bitwise."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_l2 import ops as g_ops
+    from repro_torch.kernels.prefilter_gather.ops import prefilter_gather
+    from repro_torch.kernels.simhash import ops as s_ops
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    csrc = parent_src / "repro_torch" / "kernels" / "csrc"
+    libs, procs = {}, []
+    for name in ("gather_l2", "simhash"):
+        lib = _build.BUILD_DIR / f"parent_{name}.so"
+        procs.append((name, lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)))
+    for name, lib, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"parent {name}.cu: {out.decode()[-2000:]}")
+        libs[name] = ctypes.CDLL(str(lib))
+
+    def parent_kernel(lib):
+        def bind(name, argtypes):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            return fn
+        return bind
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    base, tier_lanes, blocks = _trip_operands(dev, g, N_QUERIES, 16, DIM, CAP)
+    qs, table, code_q, codes, thr = base
+    sets = blocks(30)
+    delta_sq = torch.where(torch.isfinite(thr), 1.0, float("inf"))
+    m_bits = 64
+
+    def parent_dist(ids, tier):
+        if tier is None:
+            return g_ops.gather_l2(qs, table, ids)
+        res = tier[0][ids.clamp_min(0).long()]
+        hot_ids = torch.where((ids >= 0) & res, ids, -1)
+        cold_ids = torch.where((ids >= 0) & ~res, ids, -1)
+        return torch.minimum(g_ops.gather_l2(qs, table, hot_ids),
+                             g_ops.gather_l2_q8(qs, tier[1], tier[2],
+                                                cold_ids))
+
+    def parent_trip(row, elig, tier):
+        cols = s_ops.collision_count_rows(code_q, codes, row, m_bits)
+        pass_thr = (cols.to(torch.float32) >= thr[:, None]) \
+            | ~torch.isfinite(delta_sq)[:, None]
+        mask = elig & pass_thr
+        ids = torch.where(mask, row, -1)
+        return mask, ids, parent_dist(ids, tier)
+
+    def change_trip(row, elig, tier):
+        t = torch.where(delta_sq < float("inf"), thr, -float("inf"))
+        mask, dists = prefilter_gather(qs, table, code_q, codes, row, elig,
+                                       t, tier=tier)
+        return mask, torch.where(mask, row, -1), dists
+
+    # the parent's kernels alone need the survivors' ids up front
+    fetched = [torch.where(change_trip(r, e, None)[0], r, -1)
+               for r, e in sets]
+
+    def parent_kernels(i, tier):
+        row, _ = sets[i]
+        s_ops.collision_count_rows(code_q, codes, row, m_bits)
+        if tier is None:
+            g_ops.gather_l2(qs, table, fetched[i])
+        else:
+            g_ops.gather_l2(qs, table, fetched[i])
+            g_ops.gather_l2_q8(qs, tier[1], tier[2], fetched[i])
+
+    def change_kernels(i, tier):
+        prefilter_gather(qs, table, code_q, codes, *sets[i], thr, tier=tier)
+
+    @contextmanager
+    def parent():
+        with mock.patch.object(g_ops, "_kernel",
+                               parent_kernel(libs["gather_l2"])), \
+                mock.patch.object(s_ops, "_kernel",
+                                  parent_kernel(libs["simhash"])):
+            yield
+
+    @contextmanager
+    def change():
+        yield
+
+    def launches(fn, *args):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+
+    runs = []
+    for tier_name, tier in (("f32", None), ("tier", tier_lanes)):
+        outs = {}
+        trip_launches = {}
+        for name, ctx, fn in (("parent", parent, parent_trip),
+                              ("change", change, change_trip)):
+            with ctx():
+                fn(*sets[0], tier)
+                trip_launches[name] = launches(fn, *sets[0], tier)
+        for what, p_fn, c_fn, args in (
+                ("kernels", parent_kernels, change_kernels,
+                 [(i, tier) for i in range(len(sets))]),
+                ("trip", parent_trip, change_trip,
+                 [(r, e, tier) for r, e in sets])):
+            times = []
+            for name in ("parent", "change", "change", "parent"):
+                ctx, fn = (parent, p_fn) if name == "parent" \
+                    else (change, c_fn)
+                with ctx():
+                    if what == "trip":
+                        outs[name] = fn(*args[0])
+                    times.append([name, median_ms(fn, args)])
+            runs.append(dict(lane=tier_name, what=what, times_ms=times))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                     outs["change"]))
+        runs[-1]["bitwise_equal"] = same
+        runs[-1]["device_launches_per_trip"] = trip_launches
+        if not same:
+            raise AssertionError(f"the parent's trip and this tree's differ "
+                                 f"({tier_name})")
+    cold = [(torch.where(r >= 0, r, -1),) for r, _ in sets]
+    q8 = []
+    for name in ("parent", "change", "change", "parent"):
+        with (parent if name == "parent" else change)():
+            q8.append([name, median_ms(
+                lambda i: g_ops.gather_l2_q8(qs, tier_lanes[1],
+                                             tier_lanes[2], i), cold)])
+    emit({"phase": "fetch_ab", "parent_src": str(parent_src), "runs": runs,
+          "gather_l2_q8_times_ms": q8,
+          "shape": f"[{N_QUERIES}, 16] d={DIM} m=64 table={CAP}x{DIM}"})
+
+
 def phase_beam(dev, idx, queries):
     """The beam megakernel over the built index's snapshot, 1,000 queries
     at ef = 48 with the filter on and a lazy-delete lane (1 % of the
     nodes marked not returnable), for B in {1, 4} and rho in {1.0, 0.5},
     and once with the tier lanes: bitwise against the loop route on the
-    card (which fetches through gather_l2 / gather_l2_q8) and against its
+    card (which fetches through prefilter_gather at rho = 1, through
+    collision_count_rows and gather_l2 at rho = 0.5) and against its
     plain version.  Timed at B = 1, rho = 1 (the default configuration);
     the bound counts the distinct rows the run's own heat lanes say it
     had to read (`_beam_rows`).  What sets the time is the slowest
@@ -1310,13 +1646,19 @@ def phase_beam(dev, idx, queries):
                   max_iters=2 * ef, use_filter=True, n_expand=B)
         opt = dict(returnable=returnable, **(tier_lanes if tier else {}))
         got = fused_beam_search(*args, **opt, **kw)
-        dist_fn = (hnsw._tier_dist_fn if tier else hnsw._dist_fn)(st, qs)
+        if tier:
+            resident = hnsw._exact_resident(st)
+            dist_fn = hnsw._tier_dist_fn(st, qs, resident)
+            fetch_fn = hnsw._tier_fetch_fn(st, qs, code_q, resident)
+        else:
+            dist_fn = hnsw._dist_fn(st, qs)
+            fetch_fn = hnsw._fetch_fn(st, qs, code_q)
         loop = traversal.beam_search(
             qs, ep, d_ep, hnsw._snapshot_adj_fn(snap), dist_fn, st.codes,
             code_q, routable, cap=cfg.cap, ef=ef, k=K, m_bits=cfg.m_bits,
             eps=cfg.eps, rho=rho, max_iters=2 * ef, use_filter=True,
             q_norm=q_norm, mean_norm=st.mean_norm, n_expand=B, M=cfg.M,
-            returnable=returnable)
+            returnable=returnable, fetch_fn=fetch_fn)
         loop = (loop.ids, loop.dists, torch.stack(list(loop.stats), 1),
                 loop.heat_nodes, loop.heat_mask)
         plain = beam_search_ref(*args, **opt, **kw)
@@ -1592,7 +1934,7 @@ def kernels_line(kernels, totals, by_class) -> dict:
             e["class_launches"] = by_class[name].get(e["class"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "shapes", "entries")
+            "shapes", "entries", "fuses")
     return {"kernels": [{k: row[k] for k in keys if k in row}
                         for row in kernels.values()]}
 
@@ -1604,6 +1946,8 @@ def main() -> int:
         else SRC
     ab_parent = Path(sys.argv[2]).resolve() \
         if sys.argv[1:2] == ["--beam-ab"] and len(sys.argv) > 2 else None
+    fetch_parent = Path(sys.argv[2]).resolve() \
+        if sys.argv[1:2] == ["--fetch-ab"] and len(sys.argv) > 2 else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1648,6 +1992,9 @@ def main() -> int:
         return 0
     if ab_parent is not None:
         beam_ab(dev, ab_parent)
+        return 0
+    if fetch_parent is not None:
+        fetch_ab(dev, fetch_parent)
         return 0
 
     kernels = phase_kernels(dev)

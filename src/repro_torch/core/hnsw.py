@@ -36,6 +36,7 @@ from repro_torch.core.traversal import (
 from repro_torch.kernels.beam.ops import fused_beam_search
 from repro_torch.kernels.gather_l2.ops import gather_l2, gather_l2_q8
 from repro_torch.kernels.l2_distance.ops import l2_distance
+from repro_torch.kernels.prefilter_gather.ops import prefilter_gather
 
 _I32 = torch.int32
 
@@ -266,15 +267,16 @@ def _exact_resident(state: HNSWState) -> torch.Tensor:
     return state.hot | (state.levels > 0)
 
 
-def _tier_dist_fn(state: HNSWState, qs: torch.Tensor):
-    """Mixed-lane distance: exact for resident rows, dequant+L2 for cold.
+def _tier_dist_fn(state: HNSWState, qs: torch.Tensor,
+                  resident: torch.Tensor):
+    """Mixed-lane distance: exact for resident rows (`resident`, from
+    `_exact_resident`), dequant+L2 for cold.
 
     Each id hits exactly one lane (the other contributes +inf), so the
     lanes merge with an elementwise min.  Cold distances are approximate;
     `_tier_rerank` restores exactness for the final candidate window.
     """
     qs = qs.contiguous()
-    resident = _exact_resident(state)
 
     def fn(ids):
         res = resident[ids.clamp_min(0).long()]
@@ -283,6 +285,32 @@ def _tier_dist_fn(state: HNSWState, qs: torch.Tensor):
         return torch.minimum(
             gather_l2(qs, state.vectors, hot_ids),
             gather_l2_q8(qs, state.qvecs, state.qscale, cold_ids))
+    return fn
+
+
+def _fetch_fn(state: HNSWState, qs: torch.Tensor, code_q: torch.Tensor):
+    """(row, eligible, thr) -> (fetch_mask, dists): a loop-beam trip's
+    SimHash prefilter and the fetch of its survivors in one
+    `prefilter_gather` launch (the `fetch_fn` of `beam_search`)."""
+    qs, code_q = qs.contiguous(), code_q.contiguous()
+
+    def fn(row, eligible, thr):
+        return prefilter_gather(qs, state.vectors, code_q, state.codes, row,
+                                eligible, thr)
+    return fn
+
+
+def _tier_fetch_fn(state: HNSWState, qs: torch.Tensor,
+                   code_q: torch.Tensor, resident: torch.Tensor):
+    """`_fetch_fn` over both lanes: a survivor's distance from its f32 row
+    where it is resident, else from its int8 row, as `_tier_dist_fn`
+    scores it."""
+    qs, code_q = qs.contiguous(), code_q.contiguous()
+    tier = (resident, state.qvecs, state.qscale)
+
+    def fn(row, eligible, thr):
+        return prefilter_gather(qs, state.vectors, code_q, state.codes, row,
+                                eligible, thr, tier=tier)
     return fn
 
 
@@ -472,14 +500,20 @@ def search_batch(cfg: HNSWConfig, state: HNSWState, qs: torch.Tensor,
     code_q = simhash.encode(state.proj, qs)
     adj_fn = _bottom_adj_fn(cfg, state) if snapshot is None \
         else _snapshot_adj_fn(snapshot)
-    dist_fn = _tier_dist_fn(state, qs) if cfg.tier else _dist_fn(state, qs)
+    if cfg.tier:
+        resident = _exact_resident(state)
+        dist_fn = _tier_dist_fn(state, qs, resident)
+        fetch_fn = _tier_fetch_fn(state, qs, code_q, resident)
+    else:
+        dist_fn, fetch_fn = _dist_fn(state, qs), _fetch_fn(state, qs, code_q)
     res = beam_search(
         qs, ep, d_ep, adj_fn, dist_fn,
         state.codes, code_q, routable,
         cap=cfg.cap, ef=ef, k=cfg.k, m_bits=cfg.m_bits, eps=cfg.eps,
         rho=rho, max_iters=2 * ef, use_filter=use_filter,
         q_norm=_norm(qs), mean_norm=state.mean_norm,
-        n_expand=n_expand, M=cfg.M, active=active, returnable=returnable)
+        n_expand=n_expand, M=cfg.M, active=active, returnable=returnable,
+        fetch_fn=fetch_fn)
     return _tier_rerank(cfg, state, qs, res) if cfg.tier else res
 
 
@@ -650,7 +684,8 @@ def insert(cfg: HNSWConfig, state: HNSWState, x: torch.Tensor,
         cap=cfg.cap, ef=cfg.ef_construction, k=cfg.k, m_bits=cfg.m_bits,
         eps=cfg.eps, rho=cfg.rho, max_iters=2 * cfg.ef_construction,
         use_filter=cfg.use_filter, q_norm=xnorm[None],
-        mean_norm=state.mean_norm, M=cfg.M)
+        mean_norm=state.mean_norm, M=cfg.M,
+        fetch_fn=_fetch_fn(state, x[None], code[None]))
     nbrs = _diversity_topm(res.ids, res.dists, state.vectors, cfg.M)[0][0]
     if first:
         nbrs = torch.full_like(nbrs, -1)
@@ -738,7 +773,7 @@ def insert_batch(cfg: HNSWConfig, state: HNSWState, xs: torch.Tensor,
         eps=cfg.eps, rho=cfg.rho, max_iters=2 * cfg.ef_construction,
         use_filter=cfg.use_filter, q_norm=xnorms,
         mean_norm=state.mean_norm, n_expand=n_expand, M=cfg.M,
-        active=valid)
+        active=valid, fetch_fn=_fetch_fn(state, xs, codes))
     pool = min(2 * cfg.M, res.ids.shape[1])
     cand_nbrs, _ = _diversity_topm(
         torch.cat([res.ids[:, :pool], in_ids], 1),

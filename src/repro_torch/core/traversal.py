@@ -5,9 +5,10 @@ of query lanes instead of vmapped.  The bottom-layer traversal is the
 paper's hot loop: pop the closest unexpanded candidates, read their
 adjacency rows (from the LSM tree, or a resolved snapshot of it — pays
 `t_n`), prefilter the neighbors with in-memory SimHash collision counts
-(Eq. 5-6, the `collision_count_rows` kernel), and fetch full vectors
-only for survivors (each pays `t_v`) through the fused gather+distance
-kernel.
+(Eq. 5-6), and fetch full vectors only for survivors (each pays `t_v`):
+with the filter on and no sampling, both in one `prefilter_gather`
+launch per trip (`fetch_fn`); otherwise the `collision_count_rows`
+kernel, then the fused gather+distance kernel.
 
 Loop semantics follow the vmapped `lax.while_loop` exactly: every lane
 carries its own trip counter and state; each trip computes the body for
@@ -98,6 +99,7 @@ def beam_search(
     M: int,                          # adjacency row width of `adj_fn`
     active: torch.Tensor | None = None,      # bool[Bq] — False: inert lane
     returnable: torch.Tensor | None = None,  # bool[cap] — None: all of `live`
+    fetch_fn: Callable | None = None,        # (row, eligible, thr) -> (mask, dists)
 ) -> BeamResult:
     """Batched sampling-guided beam search; one lane per query row.
 
@@ -112,6 +114,15 @@ def beam_search(
     the budget, its trip cap or its frontier is exhausted.  An inactive
     lane (`active` False) never enters the loop, returns all -1/inf,
     records no heat and contributes zero IOStats.
+
+    `fetch_fn` (optional) is a trip's whole fetch in one call: row
+    int32[Bq, n], eligible bool[Bq, n] and the Hoeffding threshold
+    thr f32[Bq] (-inf where the k-th beam distance is not finite) ->
+    (fetch_mask, dists), as `kernels.prefilter_gather` computes them
+    with the codes and rows it closes over.  It is taken where the
+    filter is on and nothing samples (rho >= 1); elsewhere a trip
+    counts through `collision_count_rows` and fetches through `dist_fn`,
+    and the results are the same either way.
     """
     dev = q.device
     nq = q.shape[0]
@@ -150,6 +161,7 @@ def beam_search(
     live_pad = torch.cat([live.to(torch.bool),
                           torch.zeros(1, dtype=torch.bool, device=dev)])
     static_all = isinstance(rho, (int, float)) and rho >= 1.0
+    fused_fetch = fetch_fn is not None and use_filter and static_all
 
     while True:
         thresh = beam_d[:, fidx]
@@ -189,33 +201,45 @@ def beam_search(
         #    filter and the sampling cap nothing reads them, so they are
         #    not counted (the reference computes them and its compiled
         #    form drops the dead value) ---------------------------------
-        if use_filter or not static_all:
-            cols = collision_count_rows(code_q, codes, row.contiguous(),
-                                        m_bits)
         delta_sq = beam_d[:, k - 1]
         if use_filter:
             cos = simhash.cos_from_l2(delta_sq, q_norm, mean_norm)
             thr = simhash.hoeffding_threshold(m_bits, eps, cos)
-            pass_thr = (cols.to(torch.float32) >= thr[:, None]) \
-                | ~torch.isfinite(delta_sq)[:, None]
-            pre_mask = eligible & pass_thr
+        if fused_fetch:
+            # the prefilter and the fetch of its survivors (t_v each) in
+            # one call; an unfilled beam (k-th distance +inf) keeps every
+            # eligible id, as `| ~isfinite(delta_sq)` does below (a squared
+            # distance is never -inf, so `< INF` is that test in one
+            # launch where `isfinite` takes several on the card)
+            thr = torch.where(delta_sq < INF, thr, -INF)
+            fetch_mask, dists = fetch_fn(row.contiguous(), eligible, thr)
+            fetch_ids = torch.where(fetch_mask, row, -1)
         else:
-            pre_mask = eligible
+            if use_filter or not static_all:
+                cols = collision_count_rows(code_q, codes, row.contiguous(),
+                                            m_bits)
+            if use_filter:
+                pass_thr = (cols.to(torch.float32) >= thr[:, None]) \
+                    | ~torch.isfinite(delta_sq)[:, None]
+                pre_mask = eligible & pass_thr
+            else:
+                pre_mask = eligible
 
-        # -- sampling cap (Eq. 8): evaluate only rho of the survivors,
-        #    keeping the most-colliding ones ------------------------------
-        if static_all:
-            fetch_mask = pre_mask
-        else:
-            score = torch.where(pre_mask, cols, -1)
-            rank = _rank_desc(score)
-            n_elig = pre_mask.sum(1, dtype=i32)
-            cap_dyn = torch.ceil(rho * n_elig.to(torch.float32)).to(i32)
-            fetch_mask = pre_mask & (rank < cap_dyn[:, None])
-        fetch_ids = torch.where(fetch_mask, row, -1)
+            # -- sampling cap (Eq. 8): evaluate only rho of the survivors,
+            #    keeping the most-colliding ones --------------------------
+            if static_all:
+                fetch_mask = pre_mask
+            else:
+                score = torch.where(pre_mask, cols, -1)
+                rank = _rank_desc(score)
+                n_elig = pre_mask.sum(1, dtype=i32)
+                cap_dyn = torch.ceil(rho * n_elig.to(torch.float32)).to(i32)
+                fetch_mask = pre_mask & (rank < cap_dyn[:, None])
+            fetch_ids = torch.where(fetch_mask, row, -1)
 
-        # -- one fused gather+distance call over the B*M block (t_v each) --
-        dists = dist_fn(fetch_ids)
+            # -- one fused gather+distance call over the B*M block (t_v
+            #    each) -----------------------------------------------------
+            dists = dist_fn(fetch_ids)
 
         # -- bookkeeping ----------------------------------------------------
         # in place: frozen lanes write only to the spare slot `cap`,

@@ -261,4 +261,82 @@ __device__ __forceinline__ void l2_q8_rows(const float* __restrict__ q,
   reduce_rows<N>(acc, lane, out);
 }
 
+// The distances from one query row to 8 rows of both lanes: slot r is an
+// int8 row qrows[r] with scale[r] where bit r of `cold` is set, else the
+// f32 row rows[r].  Each is summed exactly as l2_f32 or l2_q8 sums it
+// (the two share the grouping, the contracted multiply-add and the
+// tree), so a slot's bits are those of its own lane's helper.  `cold` is
+// the same in every lane of the warp, so each slot issues one load, of
+// its own type, before the first sum, with no divergence.  A slot that is
+// skipped points both pointers at any readable row of d elements (an
+// int8 one needs 4-byte alignment under kVec4), and its sum is ignored.
+template <bool kVec4>
+__device__ __forceinline__ float l2_mixed_rows8(
+    const float* __restrict__ q, const float* const (&rows)[8],
+    const int8_t* const (&qrows)[8], const float (&scale)[8], unsigned cold,
+    int d, int lane) {
+  float acc[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+  if (kVec4) {
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int j = lane; j < d / 4; j += 32) {
+      const float4 a = __ldg(q4 + j);
+      float4 c[8];
+      char4 v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if ((cold >> r) & 1u) {
+          v[r] = __ldg(reinterpret_cast<const char4*>(qrows[r]) + j);
+        } else {
+          c[r] = __ldg(reinterpret_cast<const float4*>(rows[r]) + j);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float ex, ey, ez, ew;
+        if ((cold >> r) & 1u) {
+          const float s = scale[r];
+          ex = __fmul_rn(static_cast<float>(v[r].x), s);
+          ey = __fmul_rn(static_cast<float>(v[r].y), s);
+          ez = __fmul_rn(static_cast<float>(v[r].z), s);
+          ew = __fmul_rn(static_cast<float>(v[r].w), s);
+        } else {
+          ex = c[r].x;
+          ey = c[r].y;
+          ez = c[r].z;
+          ew = c[r].w;
+        }
+        const float dx = a.x - ex, dy = a.y - ey;
+        const float dz = a.z - ez, dw = a.w - ew;
+        acc[r] += dx * dx;
+        acc[r] += dy * dy;
+        acc[r] += dz * dz;
+        acc[r] += dw * dw;
+      }
+    }
+  } else {
+    const int w = d % 4 == 0 ? 4 : 1;
+    for (int j = lane; j < d / w; j += 32) {
+      for (int e = j * w; e < (j + 1) * w; ++e) {
+        const float qe = __ldg(q + e);
+        float c[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          c[r] = (cold >> r) & 1u
+                     ? __fmul_rn(static_cast<float>(__ldg(qrows[r] + e)),
+                                 scale[r])
+                     : __ldg(rows[r] + e);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float diff = qe - c[r];
+          acc[r] += diff * diff;
+        }
+      }
+    }
+  }
+  return reduce_rows8(acc, lane);
+}
+
 }  // namespace rowdist

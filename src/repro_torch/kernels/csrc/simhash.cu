@@ -30,10 +30,14 @@
 // memory and gives each thread one candidate code: it reads the code's
 // words once and writes 16 counts, coalesced along the candidates.  The
 // gathered kernel gives each (query, id) pair a thread that clamps its id
-// into the table and reads one code row.  Both count through
-// `word_diff` (`__popc` of the low 32 bits of each word's XOR).  Bound:
-// bytes (the int32 output of the all-pairs form; the ids, outputs and
-// distinct code rows of the gathered form).
+// into the table and reads one code row, 16 bytes a load where W is even
+// (code_row.cuh).  Both count through `coderow::word_diff` (`__popc` of
+// the low 32 bits of each word's XOR).  Bound: bytes (the int32 output of
+// the all-pairs form; the ids, outputs and distinct code rows of the
+// gathered form).  The gathered kernel's standalone time is its launch:
+// the loop beam's trip, where it stood between the prefilter's masks and
+// the gather, takes gather_l2.cu's prefilter_gather instead, and it
+// serves the sampling cap (rho < 1), which ranks every count.
 //
 // Plain C interface, bound with ctypes: each entry point returns the
 // cudaError_t of its launch (0 on success).
@@ -41,6 +45,8 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include "code_row.cuh"
 
 namespace {
 
@@ -51,10 +57,6 @@ constexpr int kRowsPerWarp = kEncRows / kEncWarps;
 constexpr int kPairThreads = 256;  // candidate codes per all-pairs block
 constexpr int kPairQueries = 16;   // query codes per all-pairs block
 constexpr int kRowThreads = 256;
-
-__device__ __forceinline__ int word_diff(long long a, long long b) {
-  return __popc(static_cast<unsigned>(a ^ b));
-}
 
 __global__ void __launch_bounds__(kEncWarps * 32)
 simhash_encode_kernel(const float* __restrict__ x,
@@ -131,7 +133,7 @@ collision_count_kernel(const long long* __restrict__ codes_q,
     const long long cw = codes_c[c * words + w];
 #pragma unroll
     for (int j = 0; j < kPairQueries; ++j) {
-      if (j < nq) ham[j] += word_diff(qs[j * words + w], cw);
+      if (j < nq) ham[j] += coderow::word_diff(qs[j * words + w], cw);
     }
   }
 #pragma unroll
@@ -152,11 +154,8 @@ collision_count_rows_kernel(const long long* __restrict__ code_q,
   const long long q = p / n;
   long long id = ids[p];
   id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
-  int ham = 0;
-  for (int w = 0; w < words; ++w) {
-    ham += word_diff(code_q[q * words + w], codes[id * words + w]);
-  }
-  out[p] = m_bits - ham;
+  out[p] = m_bits - coderow::hamming(code_q + q * words, codes + id * words,
+                                     words);
 }
 
 }  // namespace

@@ -15,7 +15,9 @@ integer-valued data, where every product and partial sum is exact in
 f32 whatever the order.  The beam megakernel
 equals, bitwise and on float data too, the port's loop route on the
 card (which fetches through `gather_l2` / `gather_l2_q8`) and its plain
-version.
+version.  `prefilter_gather` (the loop trip's prefilter and fetch in one
+launch) is bitwise equal to its plain version, and the loop route that
+takes it to the beam megakernel.
 """
 
 import numpy as np
@@ -35,6 +37,8 @@ from repro_torch.kernels.gather_l2.ref import gather_l2_q8_ref, gather_l2_ref
 from repro_torch.kernels.l2_distance.ops import l2_distance
 from repro_torch.kernels.l2_distance.ops import shape_class as l2_shape_class
 from repro_torch.kernels.l2_distance.ref import l2_distance_ref
+from repro_torch.kernels.prefilter_gather.ops import prefilter_gather
+from repro_torch.kernels.prefilter_gather.ref import prefilter_gather_ref
 from repro_torch.kernels.simhash.ops import (
     collision_count,
     collision_count_rows,
@@ -263,10 +267,17 @@ def _beam_world(dev, *, cap, dim, M, bq, floats, seed=0):
 
 
 def _loop_route(args, opt, *, ef, k, m_bits, eps, rho, max_iters,
-                use_filter, n_expand, record_heat=True):
+                use_filter, n_expand, record_heat=True, fused_fetch=False):
     """The port's loop route over the same operands, fetching through the
-    gather kernels."""
+    gather kernels, or, with `fused_fetch`, through `prefilter_gather`
+    where the trip takes it."""
     qs, entries, entry_d, adj, vecs, codes, code_qs, live, qn, mn = args
+    lanes = None if opt.get("resident") is None else (
+        opt["resident"], opt["qvecs"], opt["qscale"])
+
+    def fetch_fn(row, eligible, thr):
+        return prefilter_gather(qs, vecs, code_qs, codes, row, eligible, thr,
+                                tier=lanes)
     if opt.get("resident") is not None:
         res_ = opt["resident"]
 
@@ -284,7 +295,8 @@ def _loop_route(args, opt, *, ef, k, m_bits, eps, rho, max_iters,
         live, cap=adj.shape[0], ef=ef, k=k, m_bits=m_bits, eps=eps, rho=rho,
         max_iters=max_iters, use_filter=use_filter, q_norm=qn, mean_norm=mn,
         n_expand=n_expand, M=adj.shape[1], active=opt.get("active"),
-        returnable=opt.get("returnable"))
+        returnable=opt.get("returnable"),
+        fetch_fn=fetch_fn if fused_fetch else None)
     return (r.ids, r.dists, torch.stack(list(r.stats), 1), r.heat_nodes,
             r.heat_mask)
 
@@ -481,3 +493,142 @@ def test_simhash_cuda_wrappers_reject_what_the_kernels_do_not_take():
         collision_count_rows(codes, codes, ids.long(), 64)
     with pytest.raises(ValueError):
         collision_count_rows(codes, codes.T.contiguous().T, ids, 64)
+
+
+def _prefilter_inputs(dev, *, b, n, d, cap, seed, floats=True):
+    """A trip's operands on the card: queries, rows, codes, a row block
+    with -1 ids, ids that are not eligible, Hoeffding-like thresholds
+    (-inf on every fifth query) and the tier lanes."""
+    rng = np.random.default_rng(seed)
+    if floats:
+        q = rng.normal(size=(b, d))
+        table = rng.normal(size=(cap, d))
+    else:
+        q = rng.integers(-8, 9, (b, d))
+        table = rng.integers(-8, 9, (cap, d))
+    row = rng.integers(0, cap, (b, n)).astype(np.int32)
+    row[rng.random((b, n)) < 0.1] = -1
+    eligible = (row >= 0) & (rng.random((b, n)) < 0.75)
+    thr = rng.uniform(20.0, 34.0, b).astype(np.float32)
+    thr[::5] = -np.inf
+
+    def t(a, dtype=None):
+        a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
+        return torch.from_numpy(a).to(dev)
+
+    args = (t(q, np.float32), t(table, np.float32),
+            t(rng.integers(0, 2 ** 32, (b, 2))),
+            t(rng.integers(0, 2 ** 32, (cap, 2))), t(row), t(eligible),
+            t(thr))
+    tier = (t(rng.random(cap) < 0.5),
+            t(rng.integers(-127, 128, (cap, d)), np.int8),
+            t(rng.random(cap) * 0.1, np.float32))
+    return args, tier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", [False, True])
+@pytest.mark.parametrize("d", [65, 128])
+@pytest.mark.parametrize("b,n", [(1000, 16), (1024, 16), (1, 16), (250, 64),
+                                 (7, 9)])
+def test_prefilter_gather_cuda_kernel_matches_plain(b, n, d, tier):
+    """Bitwise on float data, mask and distances: a search trip's
+    [1,000, 16], an insert batch's [1,024, 16], a lone item's [1, 16],
+    n_expand = 4's [Q, 64] and a ragged chunk; aligned and misaligned
+    operands (the scalar loads)."""
+    dev = _cuda()
+    args, lanes = _prefilter_inputs(dev, b=b, n=n, d=d, cap=20000,
+                                    seed=b + n + d)
+    lanes = lanes if tier else None
+    prefilter_gather.launches = 0
+    prefilter_gather.by_class.clear()
+    mask, dists = prefilter_gather(*args, tier=lanes)
+    torch.cuda.synchronize()
+    assert prefilter_gather.launches == 1
+    assert dict(prefilter_gather.by_class) == {"tier" if tier else "f32": 1}
+    want = prefilter_gather_ref(*args, tier=lanes)
+    assert torch.equal(mask, want[0])
+    assert torch.equal(dists, want[1])
+    if b * n > 100:
+        assert bool(mask.any()) and bool((args[5] & ~mask).any())
+    q, table = args[0], args[1]
+    moved = (_misaligned(q), _misaligned(table)) + args[2:]
+    m2, d2 = prefilter_gather(*moved, tier=None if lanes is None else (
+        lanes[0], _misaligned(lanes[1]), lanes[2]))
+    assert torch.equal(m2, mask) and torch.equal(d2, dists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [65, 128])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 16, 64])
+@pytest.mark.parametrize("b", [1, 1000])
+def test_gather_l2_q8_chunked_kernel_matches_plain(b, k, d):
+    """The redesigned cold-lane gather (8 ids a warp) at chunk edges,
+    bitwise on float data, misaligned too."""
+    dev = _cuda()
+    rng = np.random.default_rng(b + k + d)
+    n = 20000
+    qt = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(
+        np.int8)).to(dev)
+    sc = torch.from_numpy((rng.random(n) * 0.1).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(-1, n, (b, k)).astype(
+        np.int32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    gather_l2_q8.launches = 0
+    out = gather_l2_q8(q, qt, sc, ids)
+    torch.cuda.synchronize()
+    assert gather_l2_q8.launches == 1
+    assert torch.equal(out, gather_l2_q8_ref(q, qt, sc, ids))
+    assert torch.equal(gather_l2_q8(_misaligned(q), _misaligned(qt), sc, ids),
+                       out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_bits", [32, 64, 96, 128])
+def test_collision_count_rows_code_loads_match_plain(m_bits):
+    """The gathered count with 16-byte code-row loads (W even, aligned)
+    and with word loads (W odd, or a table one word off alignment)."""
+    dev = _cuda()
+    rng = np.random.default_rng(m_bits)
+    words = m_bits // 32
+    codes = torch.from_numpy(rng.integers(0, 2 ** 32, (5000, words))).to(dev)
+    cq = torch.from_numpy(rng.integers(0, 2 ** 32, (300, words))).to(dev)
+    ids = torch.from_numpy(rng.integers(-2, 5002, (300, 16)).astype(
+        np.int32)).to(dev)
+    want = collision_count_rows_ref(cq, codes, ids, m_bits)
+    collision_count_rows.launches = 0
+    for c, q in ((codes, cq), (_misaligned(codes), cq),
+                 (codes, _misaligned(cq))):
+        assert torch.equal(collision_count_rows(q, c, ids, m_bits), want)
+    torch.cuda.synchronize()
+    assert collision_count_rows.launches == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["lazy", "tier", "active"])
+@pytest.mark.parametrize("n_expand", [1, 4])
+def test_loop_route_with_fused_fetch_matches_beam_kernel(n_expand, lanes):
+    """The loop route taking prefilter_gather (filter on, rho = 1): one
+    launch a trip, no separate collision count, and bitwise the beam
+    megakernel's and the separate route's results on float data."""
+    dev = _cuda()
+    w = _beam_world(dev, cap=3000, dim=65, M=8, bq=200, floats=True,
+                    seed=7 + n_expand)
+    keep = {"lazy": ["returnable"],
+            "tier": ["returnable", "resident", "qvecs", "qscale"],
+            "active": ["returnable", "active"]}[lanes]
+    opt = {n: w["opt"][n] for n in keep}
+    kw = dict(ef=24, k=5, m_bits=64, eps=0.1, rho=1.0, max_iters=48,
+              use_filter=True, n_expand=n_expand)
+    prefilter_gather.launches = 0
+    collision_count_rows.launches = 0
+    fused = _loop_route(w["args"], opt, fused_fetch=True, **kw)
+    torch.cuda.synchronize()
+    assert prefilter_gather.launches > 3
+    assert collision_count_rows.launches == 0
+    separate = _loop_route(w["args"], opt, **kw)
+    megakernel = fused_beam_search(*w["args"], **opt, **kw)
+    for name, a, b, c in zip(("ids", "dists", "stats", "heat_nodes",
+                              "heat_mask"), fused, separate, megakernel):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
