@@ -11,7 +11,9 @@ against SRC's in one process (`beam_ab`).  `python3 chip_smoke.py
 --fetch-ab SRC` times a loop trip's prefilter and fetch, SRC's separate
 `collision_count_rows` and gather launches against this checkout's one
 `prefilter_gather`, and SRC's `gather_l2_q8` against this checkout's
-(`fetch_ab`).
+(`fetch_ab`).  `python3 chip_smoke.py --encode-ab SRC` times SRC's
+`simhash_encode` against this checkout's at a search's, an insert
+batch's and the build's row counts (`encode_ab`).
 
 Phases, each printing one JSON line (a failed phase raises, so the
 script exits non-zero and prints no result):
@@ -178,6 +180,15 @@ def _bound(n_bytes, flops):
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
+def _encode_bound(n, m_bits, d=DIM):
+    """(bound ms, what bounds it) of `simhash_encode` over [n, d] rows and
+    m_bits projections: 2 n m d f64 operations on the tensor cores against
+    the bytes of the rows, the projections and the codes."""
+    n_bytes = 4 * (n * d + m_bits * d) + 8 * n * (m_bits // 32)
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, 2 * n * m_bits * d / F64_FLOPS
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
 def host_us_per_call(gather_l2, q, table, ids, calls=1000, rounds=5):
     """Host µs per `gather_l2` call (wall time of `calls` back-to-back
     calls, median of `rounds`), with the entry point bound once as the
@@ -261,10 +272,7 @@ def kernel_shapes(dev, gather_l2, l2_distance, simhash_encode):
                       (INSERT_WIDTH, "insert_batch: row codes"),
                       (N_BASE, "build: row codes")):
         x = torch.randn((n, DIM), generator=g, device=dev)
-        bound, by = _bound(4 * (n * DIM + 64 * DIM) + 8 * n * 2, 0)
-        f64_ms = 1e3 * 2 * n * 64 * DIM / F64_FLOPS
-        if f64_ms > bound:
-            bound, by = f64_ms, "operations"
+        bound, by = _encode_bound(n, 64)
         encodes.append(dict(shape=f"[{n}, {DIM}] m=64", caller=caller,
                             ms=median_ms(simhash_encode, [(x, proj)] * 10),
                             bound_ms=bound, bound_by=by))
@@ -545,10 +553,43 @@ def phase_kernels(dev):
     }
 
 
+def _encode_cases(dev, g):
+    """(label, x, proj) at the encode's edges, float data unless named:
+    every n x d x m of the grid below (the narrow and the wide tile, ragged
+    tiles, depths that are not a whole DMMA step, one to eight words, and
+    m x d too large to hold in shared memory at d = 256, m = 256), a row
+    block that is not 16-byte aligned (scalar loads), 2,048 projections
+    (staged per pass), and integer rows and projections built so that
+    the projections of every third row are exactly 0."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for n in (0, 1, 15, 16, 17, 1000, 1024, 4097, 131072):
+        for d in (16, 65, 128, 256):
+            x = randn(n, d)
+            for m in (32, 64, 128, 256):
+                yield f"n={n} d={d} m={m}", x, randn(m, d)
+    yield "x[1:] of [1001, 65] (not 16-byte aligned), m=64", \
+        randn(1001, 65)[1:], randn(64, 65)
+    yield "n=4097 d=128 m=2048", randn(4097, DIM), randn(2048, DIM)
+    # every projection's second half repeats its first and every third
+    # row's second half negates its first: those rows' projections are 0
+    h = DIM // 2
+    for n in (4097, N_BASE):
+        x = torch.randint(-3, 4, (n, DIM), generator=g, device=dev).float()
+        proj = torch.randint(-3, 4, (64, DIM), generator=g,
+                             device=dev).float()
+        proj[:, h:] = proj[:, :h]
+        x[::3, h:] = -x[::3, :h]
+        yield f"integer, exact zeros, n={n} d={DIM} m=64", x, proj
+
+
 def _simhash_kernels(dev, g, checks):
-    """The three SimHash entries against their plain versions, bitwise on
-    float data: encode at the bulk build's call (131,072 rows, d = 128,
-    m = 64) and a ragged one; all pairs (1,000 query codes x 131,072);
+    """The three SimHash entries against their plain versions, bitwise:
+    encode at the bulk build's call (131,072 rows, d = 128, m = 64), a
+    search's and `_encode_cases`; all pairs (1,000 query codes x 131,072);
     gathered (1,000 x 16 ids over a cap-sized code table, with -1 and
     out-of-range ids).  No single PyTorch call computes these functions,
     so there is no library yardstick."""
@@ -570,20 +611,28 @@ def _simhash_kernels(dev, g, checks):
     proj = torch.randn((m_bits, DIM), generator=g, device=dev)
     x = torch.randn((N_BASE, DIM), generator=g, device=dev)
     qx = torch.randn((N_QUERIES, DIM), generator=g, device=dev)
-    for xx, pp in ((x, proj), (qx, proj),
-                   (x[:3001, :65].contiguous(),
-                    torch.randn((128, 65), generator=g, device=dev))):
+    for xx, pp in ((x, proj), (qx, proj)):
         ok = torch.equal(simhash_encode(xx, pp), simhash_encode_ref(xx, pp))
         checks.append(dict(kernel="simhash_encode", n=xx.shape[0],
                            d=xx.shape[1], m_bits=pp.shape[0], ok=ok))
         if not ok:
             raise AssertionError(f"simhash_encode disagrees: {checks[-1]}")
+    labels = []
+    for label, xx, pp in _encode_cases(dev, g):
+        got = simhash_encode(xx, pp)
+        ok = torch.equal(got, simhash_encode_ref(xx, pp))
+        if ok and label.startswith("integer"):
+            ok = bool((got[::3] == 2 ** 32 - 1).all())
+        if not ok:
+            raise AssertionError(f"simhash_encode disagrees: {label}")
+        labels.append(label)
+    checks.append(dict(kernel="simhash_encode", bitwise_cases=len(labels),
+                       edges=labels[-4:], ok=True))
     codes_c = simhash_encode(x, proj)
     codes_q = simhash_encode(qx, proj)
     e_ms = median_ms(simhash_encode, [(x, proj)] * 10)
     e_plain = median_ms(simhash_encode_ref, [(x, proj)] * 10)
-    e_bytes = 4 * (N_BASE * DIM + m_bits * DIM) + 8 * N_BASE * words
-    e_flops = 2 * N_BASE * m_bits * DIM
+    e_bound, e_by = _encode_bound(N_BASE, m_bits)
 
     out = collision_count(codes_q, codes_c, m_bits)
     ok = torch.equal(out, collision_count_ref(codes_q, codes_c, m_bits))
@@ -631,11 +680,7 @@ def _simhash_kernels(dev, g, checks):
             name="simhash_encode", route="cuda", source=src,
             replaces="src/repro/kernels/simhash/kernel.py:38",
             max_abs_err=0.0, ms=e_ms, plain_ms=e_plain,
-            bound_ms=1e3 * max(e_bytes / HBM_BYTES_PER_S,
-                               e_flops / F64_FLOPS),
-            bound_by=("operations" if e_flops / F64_FLOPS
-                      >= e_bytes / HBM_BYTES_PER_S else "bytes"),
-            library_ms=None,
+            bound_ms=e_bound, bound_by=e_by, library_ms=None,
             shape=f"N={N_BASE} d={DIM} m_bits={m_bits} (f64 sums)"),
         # one row for the TPU function, keyed by the counter of its
         # gathered entry, the form on the main path; the all-pairs entry,
@@ -1448,6 +1493,18 @@ def beam_ab(dev, parent_src):
         raise AssertionError(f"the two beam kernels disagree: {same}")
 
 
+def _binder(lib):
+    """A stand-in for a wrapper module's `_kernel` that binds the entry
+    points of another build of its library."""
+    import ctypes
+
+    def bind(name, argtypes):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+    return bind
+
+
 def fetch_ab(dev, parent_src):
     """`--fetch-ab SRC`: a loop trip's SimHash prefilter and fetch at a
     search's [1,000, 16] over the cap-sized table (d = 128, m = 64, fresh
@@ -1492,13 +1549,6 @@ def fetch_ab(dev, parent_src):
         if proc.returncode:
             raise RuntimeError(f"parent {name}.cu: {out.decode()[-2000:]}")
         libs[name] = ctypes.CDLL(str(lib))
-
-    def parent_kernel(lib):
-        def bind(name, argtypes):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            return fn
-        return bind
 
     g = torch.Generator(device=dev).manual_seed(17)
     base, tier_lanes, blocks = _trip_operands(dev, g, N_QUERIES, 16, DIM, CAP)
@@ -1550,9 +1600,9 @@ def fetch_ab(dev, parent_src):
     @contextmanager
     def parent():
         with mock.patch.object(g_ops, "_kernel",
-                               parent_kernel(libs["gather_l2"])), \
+                               _binder(libs["gather_l2"])), \
                 mock.patch.object(s_ops, "_kernel",
-                                  parent_kernel(libs["simhash"])):
+                                  _binder(libs["simhash"])):
             yield
 
     @contextmanager
@@ -1611,6 +1661,62 @@ def fetch_ab(dev, parent_src):
     emit({"phase": "fetch_ab", "parent_src": str(parent_src), "runs": runs,
           "gather_l2_q8_times_ms": q8,
           "shape": f"[{N_QUERIES}, 16] d={DIM} m=64 table={CAP}x{DIM}"})
+
+
+def encode_ab(dev, parent_src):
+    """`--encode-ab SRC`: SRC's `simhash_encode` against this tree's on one
+    card, in one process, at a search's 1,000 query rows, an insert
+    batch's 1,024 and the bulk build's 131,072 (d = 128, m = 64, float
+    data), each timed in the order SRC, this, this, SRC beside its bound
+    (`_encode_bound`); the two trees' codes must be bitwise equal.  SRC's
+    `simhash.cu` is compiled with this tree's flags and called through
+    this tree's wrapper (the C interface is unchanged).  Beside them,
+    `torch.mm` of f64 copies of x and proj.T made beforehand: the product
+    alone (no conversion, sign or packing), a yardstick of what the f64
+    tensor cores sustain at these shapes and not the same function; and
+    the time the same timing reads for an empty kernel."""
+    import ctypes
+    from contextlib import nullcontext
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.simhash import ops
+
+    source = parent_src / "repro_torch" / "kernels" / "csrc" / "simhash.cu"
+    lib = _build.BUILD_DIR / "parent_simhash.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(source)], check=True, capture_output=True)
+    parent = _binder(ctypes.CDLL(str(lib)))
+    floor_ms = median_ms(lambda: torch.cuda._sleep(0), [()] * 30)
+    g = torch.Generator(device=dev).manual_seed(20)
+    proj = torch.randn((64, DIM), generator=g, device=dev)
+    shapes = []
+    for n in (N_QUERIES, INSERT_WIDTH, N_BASE):
+        x = torch.randn((n, DIM), generator=g, device=dev)
+        codes, times = {}, []
+        for name in ("parent", "change", "change", "parent"):
+            with (mock.patch.object(ops, "_kernel", parent)
+                  if name == "parent" else nullcontext()):
+                codes[name] = ops.simhash_encode(x, proj)
+                times.append([name, median_ms(ops.simhash_encode,
+                                              [(x, proj)] * 20)])
+        torch.cuda.synchronize()
+        xd, pt = x.double(), proj.double().T.contiguous()
+        bound, by = _encode_bound(n, 64)
+        change = float(np.mean([t for k, t in times if k == "change"]))
+        shapes.append(dict(
+            shape=f"[{n}, {DIM}] m=64", times_ms=times, bound_ms=bound,
+            bound_by=by, change_share_of_bound=bound / change,
+            bitwise_equal=bool(torch.equal(codes["parent"],
+                                           codes["change"])),
+            product_alone_f64_mm_ms=median_ms(torch.mm, [(xd, pt)] * 20)))
+    emit({"phase": "encode_ab", "parent_src": str(parent_src),
+          "shapes": shapes, "empty_kernel_ms": floor_ms})
+    if not all(e["bitwise_equal"] for e in shapes):
+        raise AssertionError("the parent's codes and this tree's differ")
 
 
 def phase_beam(dev, idx, queries):
@@ -1948,6 +2054,8 @@ def main() -> int:
         if sys.argv[1:2] == ["--beam-ab"] and len(sys.argv) > 2 else None
     fetch_parent = Path(sys.argv[2]).resolve() \
         if sys.argv[1:2] == ["--fetch-ab"] and len(sys.argv) > 2 else None
+    encode_parent = Path(sys.argv[2]).resolve() \
+        if sys.argv[1:2] == ["--encode-ab"] and len(sys.argv) > 2 else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1995,6 +2103,9 @@ def main() -> int:
         return 0
     if fetch_parent is not None:
         fetch_ab(dev, fetch_parent)
+        return 0
+    if encode_parent is not None:
+        encode_ab(dev, encode_parent)
         return 0
 
     kernels = phase_kernels(dev)

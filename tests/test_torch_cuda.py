@@ -427,16 +427,19 @@ def test_update_paths_card_equals_cpu_on_float_rows(site):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m_bits", [32, 64, 128])
-@pytest.mark.parametrize("d", [16, 65, 128])
+@pytest.mark.parametrize("m_bits", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 65, 128, 256])
 def test_simhash_cuda_kernels_match_plain(d, m_bits):
     """Float data at ragged shapes: N not a multiple of a tile (and 0),
-    d = 65, one to four words; ids past both ends of the table."""
+    the narrow tile (16 rows) and the wide one (128 rows, from 16,896 rows
+    on), d not a whole DMMA step, one to eight words, m x d past what
+    shared memory holds (d = 256, m = 256); ids past both ends of the
+    table."""
     dev = _cuda()
     rng = np.random.default_rng(d + m_bits)
     proj = torch.from_numpy(rng.normal(size=(m_bits, d)).astype(
         np.float32)).to(dev)
-    for n in (0, 1, 7, 300, 1000):
+    for n in (0, 1, 7, 15, 16, 17, 300, 1000, 1024, 4097, 131072):
         x = torch.from_numpy(rng.normal(size=(n, d)).astype(
             np.float32)).to(dev)
         if n:
@@ -446,10 +449,11 @@ def test_simhash_cuda_kernels_match_plain(d, m_bits):
         torch.cuda.synchronize()
         assert simhash_encode.launches == before + (n > 0)
         assert codes.dtype == torch.int64 and codes.shape == (n, m_bits // 32)
-        assert torch.equal(codes, simhash_encode_ref(x, proj))
-    if n:
-        assert int(codes[0].min()) == 2 ** 32 - 1
-    table = codes                                         # [1000, W]
+        assert torch.equal(codes, simhash_encode_ref(x, proj)), n
+        if n:
+            assert int(codes[0].min()) == 2 ** 32 - 1
+        if n == 1000:
+            table = codes                                 # [1000, W]
     for nq in (1, 17, 300):
         cq = simhash_encode(torch.from_numpy(rng.normal(size=(nq, d)).astype(
             np.float32)).to(dev), proj)
@@ -470,6 +474,43 @@ def test_simhash_cuda_kernels_match_plain(d, m_bits):
         # the gathered form is the all-pairs form at the (clamped) ids
         assert torch.equal(rows, allp.gather(1, ids.clamp(0, 999).long()))
     assert collision_count(cq, table[:0], m_bits).shape == (nq, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "many_words", "exact_zeros"])
+def test_simhash_cuda_encode_edges_match_plain(case):
+    """Bitwise against the plain version: a row block that is not 16-byte
+    aligned (x[1:] at d = 65: 4-byte loads), 2,048 projections (more than
+    shared memory holds: staged per pass), and integer rows and
+    projections whose projections are exactly 0 for every third row
+    (every bit of those rows set), on both tiles."""
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    if case == "unaligned":
+        x = t(rng.normal(size=(1001, 65)))[1:]
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+        shapes = [(x, t(rng.normal(size=(64, 65))))]
+    elif case == "many_words":
+        proj = t(rng.normal(size=(2048, 128)))
+        shapes = [(t(rng.normal(size=(n, 128))), proj) for n in (17, 4097)]
+    else:
+        shapes = []
+        for n in (4097, 20000):
+            x = rng.integers(-3, 4, (n, 128))
+            proj = rng.integers(-3, 4, (64, 128))
+            proj[:, 64:] = proj[:, :64]
+            x[::3, 64:] = -x[::3, :64]
+            shapes.append((t(x), t(proj)))
+    for x, proj in shapes:
+        codes = simhash_encode(x, proj)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, simhash_encode_ref(x, proj))
+        if case == "exact_zeros":
+            assert bool((codes[::3] == 2 ** 32 - 1).all())
 
 
 @pytest.mark.cuda

@@ -99,6 +99,28 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_no_launch():
                        codes)
 
 
+def test_exact_zero_projections_set_their_bits_as_in_the_reference():
+    """Integer rows and projections built so that the projections of every
+    third row are exactly 0 (its second half negates its first, and every
+    projection's second half repeats its first), a row of -0.0 and a
+    projection of zeros: an exact zero counts as >= 0 (those bits are set)
+    in the port as in the reference's Pallas kernel, bitwise."""
+    rng = np.random.default_rng(20)
+    n, d, m_bits = 40, 64, 64
+    x = _ints(rng, (n, d))
+    proj = _ints(rng, (m_bits, d))
+    proj[:, d // 2:] = proj[:, :d // 2]
+    x[::3, d // 2:] = -x[::3, :d // 2]
+    x[1] = -0.0
+    proj[5] = 0.0
+    want = np.asarray(ref_ops.simhash_encode(
+        jnp.asarray(x), jnp.asarray(proj), use_pallas=True, interpret=True))
+    got = simhash_encode(torch.from_numpy(x), torch.from_numpy(proj))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    assert (want[::3] == 2 ** 32 - 1).all() and (want[1] == 2 ** 32 - 1).all()
+    assert ((want[:, 0] >> 5) & 1).all()    # the zero projection, every row
+
+
 def test_float_codes_differ_from_the_f32_reference_only_near_zero():
     """The port's signs are those of the f64 dot product; the reference's
     are those of its f32 product.  They may differ only where the exact
