@@ -47,7 +47,9 @@ script exits non-zero and prints no result):
              the kernel variant each call takes; the fused route's
              ids equal the snapshot route's at every step;
              insert_batch's phase B (the upper connects: filter off,
-             rho = 1) launches no collision_count_rows; then the
+             rho = 1) launches no collision_count_rows; each
+             insert_batch patches the fresh snapshot, checked bitwise
+             against a fresh resolve and timed against it; then the
              insert_batch step times beside the gather's host time per
              call
   beam       the beam megakernel over the built index's snapshot, for
@@ -73,6 +75,14 @@ script exits non-zero and prints no result):
              searched after each, results checked against the searches
              before (bitwise; through perm after the reordering), and
              the LSM runs a lookup walks counted after each
+  backend    on that index: a consolidation overlapped with fused
+             searches (begin_maintain -> poll_maintain; its return time,
+             the searches served and their QPS against none in flight,
+             the state bitwise equal to a synchronous one on a clone),
+             the write barrier, save -> restore at full size (in a
+             temporary directory under build/, removed after; bitwise,
+             seconds, bytes, the next insert_batch bitwise on both),
+             stats() and memory_bytes() beside the card's allocation
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  It needs no network and one card, and
@@ -84,8 +94,10 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from contextlib import contextmanager
@@ -970,6 +982,66 @@ def phase_b_collisions():
         hnsw._insert_upper = insert_upper
 
 
+@contextmanager
+def overlay_capture():
+    """Keep, while the block runs, the overlay (staged rows and their
+    mask) of every `hnsw.insert_batch` that returns one: what the index
+    patches its fresh snapshot with."""
+    from repro_torch.core import hnsw
+    insert_batch = hnsw.insert_batch
+    out = []
+
+    def capturing(*args, **kw):
+        res = insert_batch(*args, **kw)
+        if kw.get("return_overlay"):
+            out.append(res[2])
+        return res
+
+    hnsw.insert_batch = capturing
+    try:
+        yield out
+    finally:
+        hnsw.insert_batch = insert_batch
+
+
+def wall_s(fn, reps: int = 3):
+    """(median wall seconds of `reps` synchronized calls, last result)."""
+    import torch
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def check_patch(index, snap_before, overlays, step):
+    """The snapshot `insert_batch` patched against a fresh resolve of the
+    tree, bitwise, with the seconds of the patch and of the re-resolve
+    it replaced."""
+    import torch
+
+    from repro_torch.core import lsm
+    from repro_torch.core.index import patch_snapshot
+    if snap_before is None or len(overlays) != 1 or index.snapshot_stale:
+        raise AssertionError(f"{step}: the fresh snapshot was not patched")
+    patch_s, _ = wall_s(lambda: patch_snapshot(snap_before, *overlays[0]))
+    resolve_s, fresh = wall_s(lambda: lsm.snapshot_rows(
+        index.cfg.lsm_cfg, index.state.store, index.cfg.cap))
+    same = bool(torch.equal(index._snap, fresh))
+    rec = {"step": step + "_snapshot_patch", "patched_equals_fresh": same,
+           "patch_seconds": patch_s, "resolve_seconds": resolve_s,
+           "rows_patched": int(overlays[0][1][:index.cfg.cap].sum()),
+           "snap_patches": index.snap_patches}
+    emit(rec)
+    if not same:
+        raise AssertionError(f"{step}: the patched snapshot differs from a "
+                             "fresh resolve")
+    return rec
+
+
 def view(idx, **flags):
     """An index over `idx`'s state under another configuration (the
     fused route, the tier lanes), its snapshot resolved up front as the
@@ -1052,7 +1124,8 @@ def phase_main_path(dev):
     search_routes("search", truth, base, all_live)
     for b in range(INSERT_BATCHES):
         rows = extra[b * INSERT_WIDTH:(b + 1) * INSERT_WIDTH]
-        with phase_b_collisions() as phase_b:
+        snap_before = None if idx.snapshot_stale else idx._snap
+        with phase_b_collisions() as phase_b, overlay_capture() as overlays:
             res, rec = step(f"insert_batch_{b}",
                             lambda: idx.insert_batch(rows))
         want = np.arange(N_BASE + b * INSERT_WIDTH,
@@ -1071,6 +1144,7 @@ def phase_main_path(dev):
         if rec["launches"]["collision_count_rows"] \
                 or not rec["launches"][FUSED_FETCH]:
             raise AssertionError(f"insert_batch phase A: {rec['launches']}")
+        check_patch(idx, snap_before, overlays, f"insert_batch_{b}")
     allv = data
     n_all = len(allv)
     truth_all, rec = step("ground_truth_all",
@@ -2017,6 +2091,168 @@ def phase_maintenance(dev, idx, queries):
     truth2 = brute_force_knn(vecs2, queries, K, live=live2)
     routes("after_insert_reordered", eager, truth2, vecs2, live2)
     torch.cuda.synchronize()
+    return eager
+
+
+def _same_state(a, b) -> bool:
+    """Every state tensor of two indexes bitwise equal."""
+    import torch
+
+    from repro_torch.core import lsm
+    sa, sb = lsm.dehydrate(a.state), lsm.dehydrate(b.state)
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                          for k in sa)
+
+
+def phase_backend(dev, final, queries):
+    """The rest of the `VectorBackend` surface on the final full-size
+    index (a lazy-delete view on the fused route):
+
+    1. an overlapped consolidation of 1 % lazy deletes: the milliseconds
+       `begin_maintain` takes to return, the fused searches served until
+       `poll_maintain` hands back the report and their QPS, against the
+       same searches with no repair in flight, and the cut-over state
+       bitwise equal to `maintain("consolidate")` on a `clone()` taken
+       just before (the repair's own launches: `trace_counts()`);
+    2. the write barrier: a `delete_batch` issued right after a second
+       `begin_maintain` lands after the cutover (state bitwise equal to
+       the clone's consolidate-then-delete), and the stashed report is
+       claimed once, then None;
+    3. `save` -> `restore` at full size into a temporary directory under
+       build/ (removed after): every state leaf bitwise, seconds and
+       bytes of each, and the next `insert_batch` bitwise on both;
+    4. `stats()` and `memory_bytes()` beside `torch.cuda.memory_allocated`.
+    """
+    import torch
+
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.index import LSMVecIndex
+    from repro_torch.data.synth import make_clustered_vectors
+
+    b = view(final, lazy_delete=True, fused_beam=True)
+    p = SearchParams(use_snapshot=True)
+    rng = np.random.default_rng(21)
+    live_ids = np.flatnonzero((b.state.levels[:b._count] >= 0).cpu().numpy())
+    picked = rng.permutation(live_ids)[:int(0.015 * len(live_ids))]
+    dels, dels2 = picked[:len(picked) * 2 // 3], picked[len(picked) * 2 // 3:]
+    _, rec = counted("backend_delete", lambda: b.delete_batch(dels))
+    emit(rec)
+
+    def serve_until_report():
+        served, t0 = 0, time.perf_counter()
+        started = b.begin_maintain("consolidate")
+        begin_s = time.perf_counter() - t0
+        if not started:
+            raise AssertionError("begin_maintain started no repair")
+        while True:
+            rep = b.poll_maintain()
+            if rep is not None:
+                break
+            b.search(queries, K, params=p)
+            served += 1
+        return dict(report=rep, served=served, begin_s=begin_s,
+                    serve_s=time.perf_counter() - t0 - begin_s)
+
+    b.snapshot()
+    sync_ref = b.clone()
+    out, rec = counted("overlapped_consolidate", serve_until_report)
+    rep, served = out["report"], out["served"]
+    if rep.reclaimed != len(dels) or not rep.detail.get("overlapped"):
+        raise AssertionError(f"overlapped consolidate reported {rep}")
+    sync_s, sync_rep = wall_s(lambda: sync_ref.maintain("consolidate"),
+                              reps=1)
+    same = _same_state(b, sync_ref)
+    n_idle = max(served, 5)
+    b.snapshot()
+    idle_s, _ = wall_s(lambda: [b.search(queries, K, params=p)
+                                for _ in range(n_idle)], reps=1)
+    variants = b.trace_counts()
+    rec.update(begin_maintain_ms=1e3 * out["begin_s"],
+               searches_during_repair=served,
+               seconds_until_report=out["serve_s"],
+               qps_during_repair=(served * N_QUERIES / out["serve_s"]
+                                  if served else None),
+               qps_no_repair=n_idle * N_QUERIES / idle_s,
+               reclaimed=rep.reclaimed, sync_consolidate_seconds=sync_s,
+               state_equals_sync_consolidate=same,
+               trace_counts=variants)
+    emit(rec)
+    if not same or sync_rep.reclaimed != rep.reclaimed:
+        raise AssertionError("the overlapped consolidation's state differs "
+                             "from maintain('consolidate') on a clone")
+    if not variants["consolidate_bg"] or not rec["launches"]["gather_l2"]:
+        raise AssertionError("the overlapped repair launched no kernel")
+
+    # the write barrier
+    b.delete_batch(dels)          # the same ids again: device no-ops
+    b.delete_batch(dels2[:len(dels2) // 2])
+    later = dels2[len(dels2) // 2:]
+    barrier_ref = b.clone()
+    t0 = time.perf_counter()
+    if not b.begin_maintain("consolidate"):
+        raise AssertionError("begin_maintain started no second repair")
+    in_flight = not b._pending_repair.ready()
+    b.delete_batch(later)
+    barrier_s = time.perf_counter() - t0
+    claimed = b.maintenance_pending and b._pending_repair is None
+    barrier_ref.maintain("consolidate")
+    barrier_ref.delete_batch(later)
+    same = _same_state(b, barrier_ref)
+    tombs = b.n_tombstones
+    first, second = b.poll_maintain(), b.poll_maintain()
+    ok = (same and claimed and tombs == len(later) and first is not None
+          and first.detail.get("overlapped") and second is None)
+    emit({"step": "write_barrier", "repair_in_flight_at_mutation": in_flight,
+          "seconds_begin_to_mutation_applied": barrier_s,
+          "state_equals_consolidate_then_delete": same,
+          "tombstones_after": tombs, "report_claimed_once": ok})
+    if not ok:
+        raise AssertionError("write barrier: the mutation did not land "
+                             "after the cutover")
+
+    # save -> restore at full size
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=build_dir)
+    try:
+        save_s, path = wall_s(lambda: b.save(tmp, lsn=1), reps=1)
+        n_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        restore_s, (r, meta, _) = wall_s(lambda: LSMVecIndex.restore(
+            b.cfg, tmp), reps=1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = _same_state(b, r) and r._count == b._count
+    rows = make_clustered_vectors(256, DIM, seed=6)
+    got, rec = counted("insert_batch_after_restore",
+                       lambda: r.insert_batch(rows))
+    want = b.insert_batch(rows)
+    same_insert = bool(np.array_equal(got.ids, want.ids)) and \
+        _same_state(b, r)
+    rec.update(save_seconds=save_s, restore_seconds=restore_s,
+               checkpoint_bytes=n_bytes, leaves_bitwise=same,
+               insert_bitwise=same_insert, inserted=len(rows))
+    emit(rec)
+    if not (same and same_insert):
+        raise AssertionError("save/restore: the restored index differs")
+    for kname in ("gather_l2", "simhash_encode", FUSED_FETCH):
+        if not rec["launches"][kname]:
+            raise AssertionError(f"insert after restore never launched "
+                                 f"{kname}")
+    del r
+    torch.cuda.synchronize()
+
+    st = b.stats()
+    mem = st.memory.as_dict()
+    emit({"phase": "stats", "size": st.size, "n_tombstones": st.n_tombstones,
+          "delete_noops": st.delete_noops,
+          "max_tombstone_ratio": st.max_tombstone_ratio, "memory": mem,
+          "memory_bytes": b.memory_bytes(),
+          "cuda_memory_allocated": torch.cuda.memory_allocated(dev),
+          "cuda_max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+          "heat_total": b.heat_total(), "trace_counts": b.trace_counts()})
+    if st.memory.total != b.memory_bytes() or st.size != b.size \
+            or st.delete_noops < len(dels):
+        raise AssertionError(f"stats disagree: {st}")
 
 
 def kernels_line(kernels, totals, by_class) -> dict:
@@ -2120,7 +2356,8 @@ def main() -> int:
     from repro_torch.data.synth import make_clustered_vectors
     phase_profile(idx, queries,
                   make_clustered_vectors(256, DIM, seed=2))
-    phase_maintenance(dev, idx, queries)
+    final = phase_maintenance(dev, idx, queries)
+    phase_backend(dev, final, queries)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)

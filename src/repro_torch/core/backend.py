@@ -1,16 +1,23 @@
-"""Typed results and search knobs of the port (copied from
+"""The index's protocol, typed results and search knobs (copied from
 `repro.core.backend`, numpy only).
 
-`search` returns a `SearchResult`; `insert_batch`/`delete_batch` return
-an `UpdateResult`; `SearchParams` is the one place search defaults are
-resolved from a config; `maintain` returns a `MaintenanceReport`.
+`VectorBackend` is what a serving layer requires of an index, and
+`LSMVecIndex` (`core/index.py`) implements it.  Search is two-phase:
+`dispatch_search` returns a `SearchHandle` whose `collect()` brings back
+a `SearchResult`; `insert_batch`/`delete_batch` return an
+`UpdateResult`; `SearchParams` is the one place search defaults are
+resolved from a config; `maintain` returns a `MaintenanceReport`, and
+`begin_maintain`/`poll_maintain` run a consolidation beside serving.
+`stats()` returns `BackendStats` (one `ShardStats` a shard, with a
+`MemoryBreakdown`).  `merge_topk` and `shard_of_seq` are the host-side
+merge and routing of a sharded backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
@@ -105,6 +112,20 @@ class MaintenanceReport:
     detail: dict = field(default_factory=dict)
 
 
+@runtime_checkable
+class SearchHandle(Protocol):
+    """An in-flight search: device work dispatched, host read deferred.
+
+    `collect()` returns the final `SearchResult`; it is called exactly
+    once.  `is_ready()` is a non-blocking poll (True once the search's
+    device work has finished — advisory, collect() is always safe).
+    """
+
+    def collect(self) -> SearchResult: ...
+
+    def is_ready(self) -> bool: ...
+
+
 @dataclass(frozen=True)
 class MemoryBreakdown:
     """Per-component resident-byte accounting (DESIGN.md §12).
@@ -151,3 +172,143 @@ class MemoryBreakdown:
              self._BYTE_FIELDS + ("n_hot", "n_cold")}
         d["total"] = int(self.total)
         return d
+
+
+@dataclass(frozen=True)
+class ShardStats:
+    """Per-shard slice of `BackendStats`."""
+
+    size: int            # live (returnable) nodes
+    n_tombstones: int    # lazily deleted, not yet consolidated
+    delete_noops: int    # device-counted deletes of absent/dead ids
+    n_hot: int = 0       # dense-lane rows (== size+tombstones, tier off)
+    n_cold: int = 0      # quantized-lane rows
+
+    @property
+    def tombstone_ratio(self) -> float:
+        return self.n_tombstones / max(self.size + self.n_tombstones, 1)
+
+
+@dataclass(frozen=True)
+class BackendStats:
+    """The backend stats surface, the single source for serving metrics
+    (the device-side delete no-op count is read here and nowhere else).
+    `max_tombstone_ratio` is the per-shard maximum: the maintenance
+    trigger fires when any shard crosses the threshold."""
+
+    size: int
+    n_tombstones: int
+    delete_noops: int
+    max_tombstone_ratio: float
+    shards: tuple = ()     # tuple[ShardStats, ...], one entry per shard
+    # per-component resident bytes, aggregated across shards
+    memory: Optional[MemoryBreakdown] = None
+
+
+@runtime_checkable
+class VectorBackend(Protocol):
+    """What a serving layer requires of an index.
+
+    Reads: `dispatch_search(queries, k, params=...)` starts the search
+    and returns a `SearchHandle`; `search` is dispatch + collect.
+    Mutations: `insert_batch` / `delete_batch` take `pad_to`, a fixed
+    micro-batch width.  Maintenance: `maintain(op, **params)` covers
+    consolidate/compact/reorder/tier and returns a `MaintenanceReport`;
+    `begin_maintain`/`poll_maintain` run a consolidation beside serving
+    (repair on a copy of the state, cutover at once).  `initial_ids`
+    seeds an external-id map: internal ids in allocation order.
+    """
+
+    @property
+    def cap(self) -> int: ...                 # total internal id space
+
+    @property
+    def lazy_delete(self) -> bool: ...
+
+    @property
+    def snapshot_stale(self) -> bool: ...     # next snapshot read re-resolves
+
+    def search(self, queries, k: Optional[int] = None, *,
+               params: Optional[SearchParams] = None) -> SearchResult: ...
+
+    def dispatch_search(self, queries, k: Optional[int] = None, *,
+                        params: Optional[SearchParams] = None
+                        ) -> SearchHandle: ...
+
+    def insert_batch(self, xs, *,
+                     pad_to: Optional[int] = None) -> UpdateResult: ...
+
+    def delete_batch(self, ids, *,
+                     pad_to: Optional[int] = None) -> UpdateResult: ...
+
+    def maintain(self, op: str, **params) -> MaintenanceReport: ...
+
+    # `begin_maintain("consolidate", ...)` starts a repair against a copy
+    # of the live state and returns True iff one was started (False:
+    # trigger declined, or a repair is already in flight).  Queries keep
+    # serving from the live state; `poll_maintain()` cuts over once the
+    # repair is done and returns its report (None while it runs or when
+    # nothing is in flight; `block=True` waits for it).  Mutations wait
+    # for an in-flight repair first, so the cutover always lands on a
+    # write-batch boundary.
+    def begin_maintain(self, op: str, **params) -> bool: ...
+
+    def poll_maintain(self, *, block: bool = False
+                      ) -> Optional[MaintenanceReport]: ...
+
+    def stats(self) -> BackendStats: ...
+
+    def memory_bytes(self) -> int: ...        # MemoryBreakdown total
+
+    def heat_total(self) -> int: ...
+
+    def reset_heat(self) -> None: ...
+
+    def initial_ids(self) -> np.ndarray: ...
+
+    def trace_counts(self) -> dict: ...
+
+    def sync(self) -> None: ...               # block until device work done
+
+    # `save` writes an atomic full-state checkpoint (staged directory +
+    # rename) whose manifest records `lsn`, the log position it covers.
+    # `extra` carries caller-owned arrays and `meta` caller scalars; both
+    # come back from the implementation's classmethod
+    #   restore(cfg, ckpt_dir, ...) -> (backend, metadata, extras)
+    # which refuses a layout mismatch (cap, dim) rather than load it.
+    def save(self, ckpt_dir: str, *, lsn: int = 0,
+             extra: Optional[dict] = None, meta: Optional[dict] = None,
+             keep: int = 3, _pre_publish=None) -> str: ...
+
+
+def merge_topk(gids: Sequence[np.ndarray], dists: Sequence[np.ndarray],
+               k: int) -> SearchResult:
+    """Host-side top-k merge of per-shard results.
+
+    Each shard contributes its local top-k (`gids[s]` int [B, k_s] in
+    the global id space, -1 pads; `dists[s]` f32 with +inf on pads).
+    Rows are distance-sorted per shard, so the stable sort is a
+    deterministic P-way merge: ties go to the lower shard, and with one
+    shard the merge is the identity.
+    """
+    flat_i = np.concatenate(gids, axis=1)
+    flat_d = np.concatenate(dists, axis=1)
+    flat_d = np.where(flat_i >= 0, flat_d, np.inf)
+    order = np.argsort(flat_d, axis=1, kind="stable")[:, :k]
+    return SearchResult(
+        ids=np.take_along_axis(flat_i, order, axis=1),
+        dists=np.take_along_axis(flat_d, order, axis=1))
+
+
+def shard_of_seq(seq, n_shards: int):
+    """Hash-partitioned routing: allocation sequence number -> shard.
+
+    Fibonacci (multiplicative) hashing of the global allocation counter:
+    deterministic, balanced for any arrival pattern and independent of
+    the vectors.  `seq` may be an int or an int array; one shard always
+    routes to 0.
+    """
+    if n_shards == 1:
+        return np.zeros_like(np.asarray(seq)) if np.ndim(seq) else 0
+    x = np.asarray(seq, np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    return ((x >> np.uint64(33)) % np.uint64(n_shards)).astype(np.int64)

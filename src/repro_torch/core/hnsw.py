@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lsm, simhash
+from repro_torch.core.backend import MemoryBreakdown
 from repro_torch.core.iostats import IOStats
 from repro_torch.core.traversal import (
     INF,
@@ -707,8 +708,7 @@ def insert(cfg: HNSWConfig, state: HNSWState, x: torch.Tensor,
 
 def insert_batch(cfg: HNSWConfig, state: HNSWState, xs: torch.Tensor,
                  u01s: torch.Tensor, *, valid: torch.Tensor | None = None,
-                 n_expand: int | None = None
-                 ) -> Tuple[HNSWState, IOStats]:
+                 n_expand: int | None = None, return_overlay: bool = False):
     """Insert a batch of vectors; `u01s` are their level uniforms.
 
     Two phases, as in the reference:
@@ -723,6 +723,12 @@ def insert_batch(cfg: HNSWConfig, state: HNSWState, xs: torch.Tensor,
 
     `valid` (bool[n], default all-True) masks padding items at the tail;
     they allocate no id and write nothing to the graph.
+
+    Returns (state, stats); with `return_overlay`, (state, stats,
+    (overlay_rows int32[cap+1, M], overlay_valid bool[cap+1])): every
+    bottom-layer row the batch wrote, final values, which a caller
+    holding a fresh snapshot patches in instead of re-resolving the tree
+    (the last row, id `cap`, is the masked items' dead slot).
     """
     dev = state.vectors.device
     if n_expand is None:
@@ -837,7 +843,10 @@ def insert_batch(cfg: HNSWConfig, state: HNSWState, xs: torch.Tensor,
         mean_norm=torch.tensor(mean, device=dev))
     # masked lanes already report zero beam stats; backlink re-rankings
     stats = res.stats.total()
-    return state, stats._replace(n_vec=stats.n_vec + n_valid * cfg.M)
+    stats = stats._replace(n_vec=stats.n_vec + n_valid * cfg.M)
+    if return_overlay:
+        return state, stats, (overlay_rows, overlay_valid)
+    return state, stats
 
 
 # ---------------------------------------------------------------------------
@@ -1419,3 +1428,52 @@ def bulk_build(cfg: HNSWConfig, vectors, proj, u01s, *, batch: int = 64,
         max_level=lvls[entry.long()],
         # summed on the host: one reduction order whatever the device
         mean_norm=norms.cpu().mean().to(dev))
+
+
+# ---------------------------------------------------------------------------
+# memory accounting (paper Fig. 6 — what must stay resident)
+# ---------------------------------------------------------------------------
+
+def memory_counts(state: HNSWState) -> Tuple[torch.Tensor, ...]:
+    """Device-side (n_routable, n_hot, n_upper) for the byte model."""
+    routable = state.levels >= 0
+    return (routable.sum(), (routable & state.hot).sum(),
+            (state.levels > 0).sum())
+
+
+def memory_breakdown(cfg: HNSWConfig, state: HNSWState,
+                     counts=None) -> MemoryBreakdown:
+    """Per-component resident bytes, the reference's byte model.
+
+    With tiering off every routable node keeps its dense f32 row
+    resident; with tiering on only hot-lane nodes do, and cold nodes cost
+    ``dim + 4`` bytes (int8 row + f32 scale).  The bottom adjacency graph
+    stays in the LSM tree in both modes.  The tombstone lane, the insert
+    overlay's staging buffers and the ext<->int id maps a serving layer
+    holds 1:1 with capacity are counted too.  `counts` are host values
+    of `memory_counts` a caller already read; else one fused read.
+    """
+    if counts is None:
+        counts = torch.stack(memory_counts(state)).tolist()
+    n_routable, n_hot, n_upper = map(int, counts)
+    n_cold = n_routable - n_hot
+    if not cfg.tier:
+        n_hot, n_cold = n_routable, 0
+    return MemoryBreakdown(
+        hot_vectors=n_hot * cfg.dim * 4,
+        cold_codes=n_cold * (cfg.dim + 4),
+        upper_graph=n_upper * cfg.M_up * 4 * cfg.num_upper,
+        upper_vec_cache=n_upper * cfg.dim * 4,
+        simhash_codes=n_routable * cfg.words * 4,
+        memtable=cfg.lsm_cfg.mem_cap * (4 + 4 * cfg.M + 1),
+        tombstones=cfg.cap,
+        insert_overlay=(cfg.cap + 1) * (4 * cfg.M + 1),
+        id_maps=2 * cfg.cap * 8,
+        misc=4096,
+        n_hot=n_hot,
+        n_cold=n_cold)
+
+
+def memory_resident_bytes(cfg: HNSWConfig, state: HNSWState) -> int:
+    """Total resident bytes: `memory_breakdown(...).total`."""
+    return memory_breakdown(cfg, state).total

@@ -7,9 +7,10 @@ skipped (`n_filtered`, the saving Delta of Eq. 9) and beam expansions
 (`n_hops`).  Fields are int32 tensors: scalars, or one entry per query
 lane for a batched search.
 
-`DISK` is the paper's hardware (NVMe 4 KB random reads).  The
-reference's TPU-memory model is not carried over: its bandwidth was a
-TPU figure.
+Two cost models: `DISK`, the paper's hardware (NVMe 4 KB random
+reads), and `h100_hbm_model`, the card's memory (row bytes over the
+H100's HBM rate), which stands where the reference's TPU-memory model
+does.
 """
 
 from __future__ import annotations
@@ -45,6 +46,13 @@ class CostModel(NamedTuple):
 
 # NVMe random 4KB read ~= 100 us; neighbor lists are similar-size reads.
 DISK = CostModel(t_n=100e-6, t_v=100e-6)
+
+
+def h100_hbm_model(dim: int, row_width: int,
+                   bw_bytes: float = 3.35e12) -> CostModel:
+    """Cost model for the NVIDIA H100 SXM (80 GB HBM3): bytes moved over
+    the card's memory rate, 3.35 TB/s by NVIDIA's data sheet."""
+    return CostModel(t_n=row_width * 4 / bw_bytes, t_v=dim * 4 / bw_bytes)
 
 
 def search_cost(stats: IOStats, model: CostModel) -> torch.Tensor:

@@ -478,3 +478,51 @@ def memory_bytes(cfg: LSMConfig) -> int:
 def disk_bytes(cfg: LSMConfig) -> int:
     """Bytes the on-"disk" levels occupy at full capacity."""
     return sum(c * (4 + 4 * cfg.row_width + 1) for c in cfg.level_caps)
+
+
+# ---------------------------------------------------------------------------
+# durable state (de)hydration
+# ---------------------------------------------------------------------------
+
+def dehydrate(state, prefix: str = ""):
+    """Flatten a state NamedTuple into ``{path: tensor}`` with explicit,
+    stable string keys ("mem_keys", "level_keys/0", ...).
+
+    Nested NamedTuples and tuples of tensors flatten through the same
+    walk, so an `HNSWState` (its tree under "store") does too.  The keys
+    are the checkpoint manifest's schema and the reference's, letter for
+    letter: they must stay stable for old checkpoints to restore.
+    """
+    out = {}
+
+    def walk(node, path):
+        if hasattr(node, "_fields"):
+            for name in node._fields:
+                walk(getattr(node, name), f"{path}/{name}" if path else name)
+        elif isinstance(node, (tuple, list)):
+            for i, item in enumerate(node):
+                walk(item, f"{path}/{i}" if path else str(i))
+        else:
+            out[path] = node
+
+    walk(state, prefix.rstrip("/"))
+    return out
+
+
+def hydrate(template, leaves, prefix: str = ""):
+    """Inverse of :func:`dehydrate`: rebuild `template`'s structure from
+    a flat ``{path: tensor}`` dict.  `template` supplies structure only;
+    every leaf comes from `leaves`.  Raises KeyError if a path the
+    structure requires is missing."""
+
+    def walk(node, path):
+        if hasattr(node, "_fields"):
+            vals = (walk(getattr(node, n), f"{path}/{n}" if path else n)
+                    for n in node._fields)
+            return type(node)(*vals)
+        if isinstance(node, (tuple, list)):
+            return tuple(walk(item, f"{path}/{i}" if path else str(i))
+                         for i, item in enumerate(node))
+        return leaves[path]
+
+    return walk(template, prefix.rstrip("/"))

@@ -8,6 +8,11 @@ use, into `build/torch_kernels/` at the root of the checkout (listed in
 `.gitignore`).  A library's file name carries a hash of its source, of
 every shared header in `csrc/` (`*.cuh`) and of the flags, so an edited
 source or header rebuilds and an unchanged one is reused.
+
+`variants(sink)` collects, for the calling thread, the kernel variants
+the wrappers launch while it is open (`taken`): the (kernel, shape
+class) pairs an index entry point has taken, which stand where a jit's
+traced variants would.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -95,3 +101,27 @@ def check(err: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+_taken = threading.local()
+
+
+def taken(kernel: str, shape_class: str = "") -> None:
+    """Note a launch of `kernel`'s `shape_class` variant in the calling
+    thread's open `variants` scope, if there is one."""
+    sink = getattr(_taken, "sink", None)
+    if sink is not None:
+        sink.add((kernel, shape_class))
+
+
+@contextmanager
+def variants(sink: set):
+    """Add to `sink` the (kernel, shape class) pairs this thread launches
+    inside the block; while an inner scope is open, its launches go to
+    the inner sink only."""
+    outer = getattr(_taken, "sink", None)
+    _taken.sink = sink
+    try:
+        yield sink
+    finally:
+        _taken.sink = outer

@@ -173,6 +173,7 @@ def fused_beam_search(qs, entries, entry_dists, adjacency, vectors, codes,
             int(record_heat), int(use_filter), int(sample), stream)
     _build.check(err, "fused_beam_search")
     fused_beam_search.launches += 1
+    _build.taken("beam")
     return ids, dists, stats, heat_nodes, heat_mask
 
 

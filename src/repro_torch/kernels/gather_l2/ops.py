@@ -95,6 +95,7 @@ def gather_l2(queries: torch.Tensor, table: torch.Tensor,
     _build.check(err, "gather_l2")
     gather_l2.launches += 1
     gather_l2.by_class[shape_class(b, k)] += 1
+    _build.taken("gather_l2", shape_class(b, k))
     return out
 
 
@@ -136,6 +137,7 @@ def gather_l2_q8(queries: torch.Tensor, qtable: torch.Tensor,
             int(vec4), stream)
     _build.check(err, "gather_l2_q8")
     gather_l2_q8.launches += 1
+    _build.taken("gather_l2_q8")
     return out
 
 

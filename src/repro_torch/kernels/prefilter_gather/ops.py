@@ -111,6 +111,7 @@ def prefilter_gather(queries: torch.Tensor, table: torch.Tensor,
     _build.check(err, "prefilter_gather")
     prefilter_gather.launches += 1
     prefilter_gather.by_class["f32" if tier is None else "tier"] += 1
+    _build.taken("prefilter_gather", "f32" if tier is None else "tier")
     return mask, dists
 
 

@@ -95,6 +95,7 @@ def simhash_encode(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
             [_P, _P, _P, _L, _I, _I], x.device,
             x.data_ptr(), proj.data_ptr(), out.data_ptr(), n, d, words)
     simhash_encode.launches += 1
+    _build.taken("simhash_encode")
     return out
 
 
@@ -121,6 +122,7 @@ def collision_count(codes_q: torch.Tensor, codes_c: torch.Tensor,
             codes_q.data_ptr(), codes_c.data_ptr(), out.data_ptr(), n_q,
             n_c, words, m_bits)
     collision_count.launches += 1
+    _build.taken("collision_count")
     return out
 
 
@@ -153,6 +155,7 @@ def collision_count_rows(code_q: torch.Tensor, codes: torch.Tensor,
             code_q.data_ptr(), codes.data_ptr(), ids.data_ptr(),
             out.data_ptr(), n_q, n, words, codes.shape[0], m_bits)
     collision_count_rows.launches += 1
+    _build.taken("collision_count_rows")
     return out
 
 

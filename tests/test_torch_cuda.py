@@ -17,7 +17,10 @@ equals, bitwise and on float data too, the port's loop route on the
 card (which fetches through `gather_l2` / `gather_l2_q8`) and its plain
 version.  `prefilter_gather` (the loop trip's prefilter and fetch in one
 launch) is bitwise equal to its plain version, and the loop route that
-takes it to the beam megakernel.
+takes it to the beam megakernel.  The index's overlapped consolidation
+(a worker thread on a second stream) leaves the state the serving
+stream's consolidation does, bitwise, and its snapshot patches equal a
+fresh resolve.
 """
 
 import numpy as np
@@ -673,3 +676,78 @@ def test_loop_route_with_fused_fetch_matches_beam_kernel(n_expand, lanes):
                               "heat_mask"), fused, separate, megakernel):
         assert torch.equal(a, b), name
         assert torch.equal(a, c), name
+
+
+def _card_index(dev, n=1200, cap=4096, dim=32, seed=3):
+    from repro_torch.core.hnsw import HNSWConfig
+    from repro_torch.core.index import LSMVecIndex
+    from repro_torch.data.synth import make_clustered_vectors
+    cfg = HNSWConfig(cap=cap, dim=dim, M=8, M_up=4, ef_search=24,
+                     ef_construction=24)
+    data = make_clustered_vectors(n + 256, dim, seed=seed, clusters=8)
+    idx = LSMVecIndex.build(cfg, data[:n], seed=seed, device=dev)
+    return idx, data[n:]
+
+
+def _same_state(a, b):
+    from repro_torch.core import lsm
+    sa, sb = lsm.dehydrate(a.state), lsm.dehydrate(b.state)
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+
+
+@pytest.mark.cuda
+def test_side_stream_repair_equals_the_serving_stream_repair():
+    """begin_maintain's repair (a second stream, driven by a worker
+    thread) gives the state of maintain("consolidate") on the serving
+    stream, bitwise; searches served meanwhile leave it alone, and the
+    searches' handles turn ready."""
+    from repro_torch.core.backend import SearchParams
+    dev = _cuda()
+    idx, extra = _card_index(dev)
+    idx.delete_batch(np.arange(0, 1200, 7))
+    sync = idx.clone()
+    assert idx.begin_maintain("consolidate")
+    assert idx._pending_repair.side != torch.cuda.current_stream()
+    handles = []
+    while True:
+        rep = idx.poll_maintain()
+        if rep is not None:
+            break
+        handles.append(idx.dispatch_search(
+            extra[:64], params=SearchParams(use_snapshot=True)))
+        if len(handles) > 50:
+            rep = idx.poll_maintain(block=True)
+            break
+    assert rep is not None and rep.reclaimed == len(range(0, 1200, 7))
+    want = sync.maintain("consolidate")
+    assert want.reclaimed == rep.reclaimed
+    torch.cuda.synchronize()
+    _same_state(idx, sync)
+    assert all(h.is_ready() for h in handles)
+    assert idx.trace_counts()["consolidate_bg"] > 0
+
+
+@pytest.mark.cuda
+def test_card_patched_snapshot_and_variants_settle():
+    """On the card: each insert_batch's patched snapshot equals a fresh
+    resolve, and the kernel variants each entry point takes stop growing
+    after warm-up at a fixed pad width."""
+    from repro_torch.core import lsm
+    from repro_torch.core.backend import SearchParams
+    dev = _cuda()
+    idx, extra = _card_index(dev)
+    p = SearchParams(use_snapshot=True, pad_to=64)
+    counts = []
+    for r in range(4):
+        idx.search(extra[:50], params=p)
+        idx.search(extra[:30])
+        idx.insert_batch(extra[64 * r:64 * r + 40], pad_to=64)
+        fresh = lsm.snapshot_rows(idx.cfg.lsm_cfg, idx.state.store,
+                                  idx.cfg.cap)
+        assert torch.equal(idx._snap, fresh)
+        counts.append(idx.trace_counts())
+    assert idx.snap_patches == 4
+    assert counts[-1] == counts[-2]
+    assert counts[-1]["search_snapshot"] > 0
+    assert counts[-1]["insert_batch_snapshot"] > 0
