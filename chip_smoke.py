@@ -36,7 +36,7 @@ script exits non-zero and prints no result):
              a search's, an insert batch's and the build's row counts
   main_path  SIFT1M's shape (d=128, f32, default HNSWConfig) with state
              allocated at cap = 1,048,576 on the card: build -> search (LSM
-             probe, snapshot and fused routes) -> insert_batch 4 x 1,024 ->
+             probe, snapshot and fused routes) -> insert_batch 2 x 1,024 ->
              delete_batch 1% -> maintain("consolidate") -> search ->
              maintain("tier") -> tiered search (snapshot and fused routes),
              with recall@10 against brute_force_knn; kernel launch counts
@@ -71,7 +71,7 @@ script exits non-zero and prints no result):
              take its time
   maintenance  on the final index: eager delete (Algorithm 2) of 1 % of
              the live ids, maintain("compact"), maintain("reorder") on the
-             recorded heat, insert_batch of 1,024 after it; every route
+             recorded heat, insert_batch of 256 after it; every route
              searched after each, results checked against the searches
              before (bitwise; through perm after the reordering), and
              the LSM runs a lookup walks counted after each
@@ -83,6 +83,24 @@ script exits non-zero and prints no result):
              temporary directory under build/, removed after; bitwise,
              seconds, bytes, the next insert_batch bitwise on both),
              stats() and memory_bytes() beside the card's allocation
+  serve      the serving engine (`repro_torch.serve.ServeEngine`) over
+             that index, with its WAL (group commit 1) and covering
+             checkpoints under build/ (removed after): a deterministic
+             mode (about 4,096 queries, 256 inserts and 128 deletes of
+             live ids, submitted one at a time in chunks of 64, each
+             drained) and a live mode (`start()`/`stop()`, a few seconds
+             of mixed traffic), each with requests/s and p50/p99 per op;
+             an overlapped consolidation and a covering checkpoint must
+             fire.  Checked: every served query (ids distinct, live, none
+             whose delete was acked, distances those of the rows), a
+             final 1,000-query batch equal to a direct fused search of
+             the same state with recall@10 >= 0.15, recovery from the
+             checkpoint and the WAL tail bitwise equal to the live
+             engine, the four-point crash matrix with no acked write
+             lost, and a guarded steady state (the sync sentinel's
+             Python and CUDA layers on) that raises nothing and launches
+             no new kernel variant; WAL, checkpoint and recovery seconds
+             and the declared host syncs per served request
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  It needs no network and one card, and
@@ -112,7 +130,10 @@ CAP = 1 << 20                 # id space allocated on the card
 DIM = 128                     # SIFT1M's width
 N_BASE = 131_072              # rows built (SIFT1M has 1,000,000)
 N_QUERIES, K = 1000, 10
-INSERT_BATCHES, INSERT_WIDTH = 4, 1024
+# two batches, and 256 rows after the reordering, since the serve phase
+# came (PERF.md §4: the time limit)
+INSERT_BATCHES, INSERT_WIDTH = 2, 1024
+REORDER_INSERTS = 256
 DELETE_FRACTION = 0.01
 TIER_POLICY = dict(hot_frac=0.25, max_demote=CAP, max_promote=64)
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM rate,
@@ -131,6 +152,20 @@ GATHER_SHAPES = ((1000, 16, "search: bottom beam"),
                  (1, 8, "insert_batch: phase B connect"),
                  (1, 16, "insert_batch: phase B connect"))
 RAMP_SAMPLE = 32              # time every 32nd block of the build ramp
+# the serve phase: the engine's batch caps (its pad widths), the
+# deterministic mode's mix, sent in chunks drained one by one, the live
+# mode's seconds and the most tickets its client holds open, the guarded
+# steady state's requests and the crash matrix's short stream
+SERVE_BATCH = 32
+SERVE_QUERIES, SERVE_INSERTS, SERVE_DELETES, SERVE_CHUNK = 4096, 256, 128, 64
+LIVE_SECONDS, LIVE_OPEN = 3.0, 256
+# write batches between maintenance checks and between checkpoints
+SERVE_CHECK_EVERY, SERVE_CKPT_EVERY = 16, 64
+GUARD_REQUESTS = 320
+MATRIX_OPS, MATRIX_CHUNK, MATRIX_CKPT_EVERY = 60, 10, 8
+#: kernels every served stream launches (queries through the beam
+#: megakernel, inserts through the gathers and the fused prefilter)
+SERVE_PATH = ("beam", "simhash_encode", "gather_l2", "prefilter_gather")
 
 
 def emit(obj) -> None:
@@ -2078,16 +2113,16 @@ def phase_maintenance(dev, idx, queries):
             raise AssertionError(f"reordering changed the {route} route's "
                                  "results beyond renaming")
 
-    rows_new = make_clustered_vectors(INSERT_WIDTH, DIM, seed=4)
+    rows_new = make_clustered_vectors(REORDER_INSERTS, DIM, seed=4)
     res, rec = counted("insert_batch_after_reorder",
                        lambda: eager.insert_batch(rows_new))
-    rec.update(inserts_per_s=INSERT_WIDTH / rec["seconds"])
+    rec.update(inserts_per_s=REORDER_INSERTS / rec["seconds"])
     emit(rec)
-    if not np.array_equal(res.ids, np.arange(n, n + INSERT_WIDTH)):
+    if not np.array_equal(res.ids, np.arange(n, n + REORDER_INSERTS)):
         raise AssertionError("insert_batch after reorder returned "
                              "unexpected ids")
-    vecs2 = eager.state.vectors[:n + INSERT_WIDTH].cpu().numpy()
-    live2 = (eager.state.levels[:n + INSERT_WIDTH] >= 0).cpu().numpy()
+    vecs2 = eager.state.vectors[:n + REORDER_INSERTS].cpu().numpy()
+    live2 = (eager.state.levels[:n + REORDER_INSERTS] >= 0).cpu().numpy()
     truth2 = brute_force_knn(vecs2, queries, K, live=live2)
     routes("after_insert_reordered", eager, truth2, vecs2, live2)
     torch.cuda.synchronize()
@@ -2253,17 +2288,438 @@ def phase_backend(dev, final, queries):
     if st.memory.total != b.memory_bytes() or st.size != b.size \
             or st.delete_noops < len(dels):
         raise AssertionError(f"stats disagree: {st}")
+    return b
 
 
-def kernels_line(kernels, totals, by_class) -> dict:
-    """The `kernels` line: each row with its main-path launches, and each
-    timed shape of `gather_l2` and `l2_distance` with its shape class
-    (the kernel variant its wrapper's `shape_class` names) and that
-    class's launches."""
+def _serve_cfg(tmp, name, policy, **kw):
+    """The serve phase's engine settings, its WAL and checkpoints under
+    `tmp/name`."""
+    from repro_torch.serve import ServeConfig, WalConfig
+    return ServeConfig(query_batch=SERVE_BATCH, insert_batch=SERVE_BATCH,
+                       delete_batch=SERVE_BATCH,
+                       wal=WalConfig(dir=str(tmp / name / "wal"),
+                                     group_commit_n=1),
+                       ckpt_dir=str(tmp / name / "ckpt"), ckpt_keep=1,
+                       maintenance=policy, **kw)
+
+
+def _no_fresh_backend():
+    raise AssertionError("recovery found no checkpoint to restore")
+
+
+def _timed(fn, acc):
+    """`fn`, adding the seconds of each call to `acc[0]`."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+    return call
+
+
+def _check_served(eng, served, ack, vectors_h):
+    """Every served query: `check_result` on its ids mapped to internal
+    ids (distinct, allocated, distances those of the rows), and no
+    external id whose delete was acked before the query went in.
+    `served` holds (mark, query, QueryResult); `ack` maps a deleted
+    external id to the mark of its acknowledgement."""
+    from repro_torch.core.backend import SearchResult
+    ext = np.stack([r.ids for _, _, r in served])
+    for (mark, _, _), row in zip(served, ext):
+        late = [e for e in row[row >= 0].tolist()
+                if ack.get(e, np.inf) < mark]
+        if late:
+            raise AssertionError(f"served acked-deleted ids {late}")
+    ids = np.where(ext >= 0, eng._ext2int[np.maximum(ext, 0)], -1)
+    if ((ext >= 0) & (ids < 0)).any():
+        raise AssertionError("served an unallocated external id")
+    check_result(SearchResult(ids=ids, dists=np.stack(
+        [r.dists for _, _, r in served])), np.stack(
+            [q for _, q, _ in served]), vectors_h,
+        np.ones(len(vectors_h), bool))
+
+
+def _drive_chunks(eng, ops, served, ack, mark0):
+    """Submit `ops` one request at a time, in chunks of SERVE_CHUNK, each
+    drained; returns the inserted external ids."""
+    inserted = []
+    for c in range(0, len(ops), SERVE_CHUNK):
+        tickets = []
+        for kind, payload in ops[c:c + SERVE_CHUNK]:
+            tickets.append((kind, payload, getattr(
+                eng, "submit_" + kind)(payload)))
+        eng.drain()
+        for kind, payload, t in tickets:
+            v = t.result(timeout=600)
+            if kind == "query":
+                served.append((mark0 + c, payload, v))
+            elif kind == "insert":
+                inserted.append(v)
+            elif v is not True:
+                raise AssertionError(f"delete of live id {payload}: {v}")
+            else:
+                ack[payload] = mark0 + c + 0.5
+    return inserted
+
+
+def _mix(rng, n_q, n_i, n_d, qpool, fresh, dels):
+    """A shuffled stream of n_q queries (drawn from `qpool`), n_i inserts
+    (`fresh`, in order) and n_d deletes (`dels`, in order)."""
+    kinds = np.array(["query"] * n_q + ["insert"] * n_i + ["delete"] * n_d)
+    rng.shuffle(kinds)
+    fi, di, ops = iter(fresh), iter(dels), []
+    for k in kinds:
+        if k == "query":
+            ops.append(("query", qpool[int(rng.integers(len(qpool)))]))
+        elif k == "insert":
+            ops.append(("insert", next(fi)))
+        else:
+            ops.append(("delete", int(next(di))))
+    return ops
+
+
+def _live_mode(eng, rng, qpool, fresh, dels, served, ack, mark0):
+    """`start()`/`stop()`: one client thread submits mixed requests as
+    fast as it can for LIVE_SECONDS, holding at most LIVE_OPEN tickets
+    open (it waits on the oldest, with a timeout, when it holds that
+    many).  A delete counts as acked when the client sees its ticket
+    resolved; marks are `mark0` plus the seconds since the start, a
+    query's taken when it goes in."""
+    import collections
+    opened = collections.deque()
+    n = Counter()
+
+    def harvest(item):
+        kind, payload, t_in, ticket = item
+        v = ticket.result(timeout=600)
+        n[kind] += 1
+        if kind == "query":
+            served.append((t_in, payload, v))
+        elif kind == "delete":
+            if v is not True:
+                raise AssertionError(f"delete of live id {payload}: {v}")
+            ack[payload] = mark0 + time.perf_counter() - t_start
+
+    fi, di = 0, 0
+    t_start = time.perf_counter()
+    eng.start()
+    try:
+        t_end = t_start + LIVE_SECONDS
+        while time.perf_counter() < t_end:
+            r = rng.random()
+            if r < 0.06 and fi < len(fresh):
+                kind, payload = "insert", fresh[fi]
+                fi += 1
+            elif r < 0.1 and di < len(dels):
+                kind, payload = "delete", int(dels[di])
+                di += 1
+            else:
+                kind, payload = "query", qpool[int(rng.integers(len(qpool)))]
+            t_in = mark0 + time.perf_counter() - t_start
+            opened.append((kind, payload, t_in,
+                           getattr(eng, "submit_" + kind)(payload)))
+            while len(opened) >= LIVE_OPEN:
+                harvest(opened.popleft())
+    finally:
+        eng.stop()
+    while opened:
+        harvest(opened.popleft())
+    return dict(n)
+
+
+def _matrix_ops(rng, rows):
+    """The crash matrix's stream, as the reference's durability test
+    draws it: mostly inserts of `rows`, deletes of external ids that
+    earlier chunks inserted, a few queries."""
+    ops, n_ins, before = [], 0, 0
+    for i in range(MATRIX_OPS):
+        if i % MATRIX_CHUNK == 0:
+            before = n_ins
+        r = rng.random()
+        if r < 0.7 or before == 0:
+            ops.append(("insert", rows[n_ins]))
+            n_ins += 1
+        elif r < 0.85:
+            ops.append(("delete", int(rng.integers(0, before))))
+        else:
+            ops.append(("query", rows[int(rng.integers(len(rows)))]))
+    return ops
+
+
+def _crash_matrix(b, tmp, rng, rows):
+    """`run_with_recovery` at each of the four injection points on a short
+    stream at full width (the backend phase's configuration, cap
+    1,048,576, d = 128), from an empty index as the reference's
+    durability test starts; `verify_acked_writes` must find every acked
+    write by id and by a search for its own vector.  Not from the
+    full-size index: there a search for an inserted row's own vector
+    can miss it, the row linked but out of the search's reach (recall@10
+    is 0.20-0.54 on this data), which says nothing of durability."""
+    import torch
+
+    from repro_torch.core.index import LSMVecIndex
+    from repro_torch.ft import (
+        FailureInjector,
+        RestartPolicy,
+        run_with_recovery,
+        verify_acked_writes,
+    )
+    from repro_torch.serve import MaintenancePolicy, ServeEngine
+    out_rows = []
+    for point, hit in (("pre_commit", 3), ("post_commit_pre_apply", 3),
+                       ("mid_checkpoint", 1), ("mid_consolidation", 1)):
+        pol = MaintenancePolicy(
+            tombstone_ratio=None, heat_budget=None, check_every=2,
+            checkpoint_every=MATRIX_CKPT_EVERY,
+            consolidate_ratio=0.05 if point == "mid_consolidation" else None)
+        cfg = _serve_cfg(tmp, point, pol)
+        ops = _matrix_ops(rng, rows)
+
+        def make(inj, cfg=cfg):
+            return ServeEngine.recover(
+                cfg, fresh_backend=lambda: LSMVecIndex(b.cfg, seed=1,
+                                                       device=b.device),
+                restore_backend=lambda d: LSMVecIndex.restore(
+                    b.cfg, d, device=b.device),
+                injector=inj)
+
+        t0 = time.perf_counter()
+        out = run_with_recovery(
+            policy=RestartPolicy(ckpt_dir=cfg.ckpt_dir, wal_dir=cfg.wal.dir,
+                                 max_restarts=3),
+            make_engine=make, ops=ops,
+            injector=FailureInjector(fail_points={point: hit}),
+            chunk=MATRIX_CHUNK)
+        summary = verify_acked_writes(out["engine"], ops, out["acked"])
+        out_rows.append(dict(
+            point=point, hit=hit, restarts=out["restarts"],
+            retried=out["retried"], acked=len(out["acked"]),
+            checkpoints=out["engine"].metrics.maintenance_runs["checkpoint"],
+            seconds=time.perf_counter() - t0, **summary))
+        out["engine"].close()
+        del out
+        shutil.rmtree(tmp / point, ignore_errors=True)
+        torch.cuda.empty_cache()
+        if out_rows[-1]["restarts"] < 1:
+            raise AssertionError(f"crash matrix: {point} never fired")
+        if out_rows[-1]["live"] != out_rows[-1]["searched"] \
+                or not out_rows[-1]["live"]:
+            raise AssertionError(f"crash matrix: {out_rows[-1]}")
+    return out_rows
+
+
+def phase_serve(dev, b, queries):
+    """The serving engine over the backend phase's index (cap 1,048,576,
+    d = 128, lazy delete, the fused route), with its WAL and covering
+    checkpoints under build/ (removed after).  Returns the launches of
+    each kernel while the engine served (`serve_launches`).
+
+    1. Deterministic mode: about 4,096 queries (the smoke's queries and
+       base rows), 256 inserts and 128 deletes of live ids, submitted
+       one at a time in chunks of 64, each drained; an overlapped
+       consolidation and a covering checkpoint must fire.
+    2. Live mode: `start()`/`stop()` with a client thread as fast as it
+       can go for a few seconds (`_live_mode`).
+    3. A guarded steady state: GUARD_REQUESTS requests under
+       `forbid_undeclared_sync()` (Python and CUDA layers on): nothing
+       raises, `trace_counts()` does not move; the declared host syncs
+       by reason, per served request.
+    4. A final batch of 1,000 queries through the engine, mapped back
+       through `resolve_ext`: equal to a direct fused search of the same
+       state, recall@10 against `brute_force_knn` on the live set.
+    5. Every served query checked (`_check_served`).
+    6. Recovery without a crash, the live engine's WAL abandoned: state,
+       id maps and deleted set bitwise equal to the live engine's.
+    7. The four-point crash matrix (`_crash_matrix`: from an empty index
+       of the same configuration).
+    """
+    import torch
+
+    from repro_torch._device import host_any
+    from repro_torch.core import sentinel
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.index import (
+        LSMVecIndex,
+        brute_force_knn,
+        recall_at_k,
+    )
+    from repro_torch.data.synth import make_clustered_vectors
+    from repro_torch.serve import MaintenancePolicy, ServeEngine, ServeMetrics
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    count = b._count
+    live = ((b.state.levels[:count] >= 0)
+            & ~b.state.tombstone[:count]).cpu().numpy()
+    live_ids = rng.permutation(np.flatnonzero(live))
+    base_rows = b.state.vectors[:count][torch.from_numpy(
+        live_ids[:4096]).to(dev)].cpu().numpy()
+    qpool = np.concatenate([queries, base_rows])
+    fresh = make_clustered_vectors(4096, DIM, seed=41)
+    # delete pools, disjoint: deterministic, live, guarded
+    d_det, d_live = live_ids[:SERVE_DELETES], live_ids[SERVE_DELETES:1024]
+    d_guard = live_ids[1024:1100]
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_serve_", dir=build_dir))
+    try:
+        # a tombstone share that the first deletes pass
+        policy = MaintenancePolicy(tombstone_ratio=None, heat_budget=None,
+                                   consolidate_ratio=5e-4,
+                                   check_every=SERVE_CHECK_EVERY,
+                                   checkpoint_every=SERVE_CKPT_EVERY)
+        cfg = _serve_cfg(tmp, "engine", policy)
+        eng = ServeEngine(b, cfg)
+        fsync_s, ckpt_s = [0.0], [0.0]
+        eng.wal.sync = _timed(eng.wal.sync, fsync_s)
+        eng.maintenance.checkpoint_fn = _timed(eng.checkpoint, ckpt_s)
+        wrappers = launch_counters()
+        for w in wrappers.values():
+            w.launches = 0
+        host_any.syncs = 0
+        served, ack = [], {}
+
+        # 1. deterministic mode
+        ops = _mix(rng, SERVE_QUERIES, SERVE_INSERTS, SERVE_DELETES, qpool,
+                   fresh[:SERVE_INSERTS], d_det)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _drive_chunks(eng, ops, served, ack, 0)
+        torch.cuda.synchronize()
+        det = dict(mode="deterministic", seconds=time.perf_counter() - t0,
+                   requests=len(ops), metrics=eng.metrics.snapshot(),
+                   consolidations=eng.maintenance.consolidations,
+                   checkpoints=eng.maintenance.checkpoints,
+                   checkpoint_seconds=ckpt_s[0],
+                   wal_records=eng.wal.n_records, wal_commits=eng.wal.n_syncs,
+                   fsync_seconds=fsync_s[0])
+        emit({"step": "serve_deterministic", **det})
+        if not (eng.maintenance.consolidations and
+                eng.maintenance.checkpoints):
+            raise AssertionError("serve: the policy fired no overlapped "
+                                 f"consolidation or no checkpoint: {det}")
+
+        # 2. live mode
+        eng.metrics = ServeMetrics()
+        t0 = time.perf_counter()
+        n_live = _live_mode(eng, rng, qpool, fresh[SERVE_INSERTS:], d_live,
+                            served, ack, 1e6)
+        emit({"step": "serve_live", "seconds": time.perf_counter() - t0,
+              "requests": n_live, "metrics": eng.metrics.snapshot()})
+
+        # 3. the guarded steady state, after the warm-up above
+        eng.metrics = ServeMetrics()
+        warm = b.trace_counts()
+        guard_ops = _mix(rng, GUARD_REQUESTS - 64, 40, 24, qpool,
+                         fresh[-40:], d_guard)
+        sentinel.reset_sync_counts()
+        syncs0 = host_any.syncs
+        with sentinel.forbid_undeclared_sync():
+            cuda_layer = torch.cuda.get_sync_debug_mode()
+            _drive_chunks(eng, guard_ops, served, ack, 1e12)
+        counts = sentinel.sync_counts()
+        emit({"step": "serve_guarded", "requests": len(guard_ops),
+              "cuda_sync_debug_mode": cuda_layer,
+              "trace_counts_unchanged": b.trace_counts() == warm,
+              "host_any_syncs": host_any.syncs - syncs0,
+              "syncs_per_request": {k: v / len(guard_ops)
+                                    for k, v in sorted(counts.items())},
+              "metrics": eng.metrics.snapshot()})
+        if cuda_layer != 2 or b.trace_counts() != warm:
+            raise AssertionError("guarded steady state: CUDA layer "
+                                 f"{cuda_layer}, variants {warm} -> "
+                                 f"{b.trace_counts()}")
+
+        # 4. a final batch through the engine
+        eng.metrics = ServeMetrics()
+        tickets = [eng.submit_query(q) for q in queries]
+        eng.drain()
+        torch.cuda.synchronize()
+        serve_launches = {n: w.launches for n, w in wrappers.items()}
+        results = [t.result(timeout=600) for t in tickets]
+        served += [(2e12, q, r) for q, r in zip(queries, results)]
+        got = np.stack([r.ids for r in results])
+        got = np.array([[eng.resolve_ext(e) if e >= 0 else -1 for e in row]
+                        for row in got.tolist()])
+        direct = b.search(queries, K, params=SearchParams(
+            use_snapshot=True, record_heat=False))
+        count = b._count
+        live = ((b.state.levels[:count] >= 0)
+                & ~b.state.tombstone[:count]).cpu().numpy()
+        truth = brute_force_knn(b.state.vectors[:count], queries, K,
+                                live=live, device=b.device)
+        final = dict(equals_direct_fused=bool(np.array_equal(got,
+                                                             direct.ids)),
+                     recall_at_10=recall_at_k(got, truth),
+                     metrics=eng.metrics.snapshot())
+        emit({"step": "serve_final_batch", **final})
+        if not final["equals_direct_fused"] \
+                or final["recall_at_10"] < RECALL_FLOOR:
+            raise AssertionError(f"serve final batch: {final}")
+
+        # 5. every served query
+        _check_served(eng, served, ack,
+                      b.state.vectors[:count].cpu().numpy())
+        emit({"step": "serve_checked", "queries": len(served),
+              "acked_deletes": len(ack), "launches": serve_launches,
+              "host_any_syncs": host_any.syncs})
+        missing = [n for n in SERVE_PATH if not serve_launches[n]]
+        if missing:
+            raise AssertionError(f"the served stream never launched "
+                                 f"{missing}: {serve_launches}")
+
+        # 6. recovery without a crash
+        eng.wal.abandon()
+        restore_s = [0.0]
+        t0 = time.perf_counter()
+        eng2 = ServeEngine.recover(
+            cfg, fresh_backend=_no_fresh_backend,
+            restore_backend=_timed(
+                lambda d: LSMVecIndex.restore(b.cfg, d, device=b.device), restore_s))
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        same = dict(
+            state=_same_state(b, eng2.backend)
+            and eng2.backend._count == b._count,
+            int2ext=bool(np.array_equal(eng._int2ext, eng2._int2ext)),
+            ext2int=bool(np.array_equal(eng._ext2int, eng2._ext2int)),
+            deleted=eng._deleted_ext == eng2._deleted_ext,
+            next_ext=eng._next_ext == eng2._next_ext)
+        emit({"step": "serve_recover", "seconds": rec_s,
+              "restore_seconds": restore_s[0],
+              "replay_seconds": rec_s - restore_s[0],
+              "replayed_records": len(eng2.wal.records(
+                  after=eng2._covering_lsn)),
+              "covering_lsn": eng2._covering_lsn, "bitwise": same})
+        eng2.close()
+        del eng2
+        torch.cuda.empty_cache()
+        if not all(same.values()):
+            raise AssertionError(f"recovery differs from the live engine: "
+                                 f"{same}")
+
+        # 7. the crash matrix
+        matrix = _crash_matrix(b, tmp, rng, fresh[-1024:])
+        emit({"step": "serve_crash_matrix", "points": matrix})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "serve", "seconds": time.perf_counter() - t_phase})
+    return serve_launches
+
+
+def kernels_line(kernels, totals, by_class, served) -> dict:
+    """The `kernels` line: each row with its main-path launches and its
+    serve-phase launches (`serve_launches`), and each timed shape of
+    `gather_l2` and `l2_distance` with its shape class (the kernel
+    variant its wrapper's `shape_class` names) and that class's
+    launches."""
     from repro_torch.kernels.gather_l2.ops import shape_class as g_class
     from repro_torch.kernels.l2_distance.ops import shape_class as l_class
     for name, row in kernels.items():
         row["launches"] = totals[name]
+        row["serve_launches"] = served[name]
     kernels["collision_count_rows"]["entries"]["collision_count"][
         "launches"] = totals["collision_count"]
     for e in kernels["gather_l2"]["shapes"]:
@@ -2274,7 +2730,8 @@ def kernels_line(kernels, totals, by_class) -> dict:
     for name in BY_CLASS:
         for e in kernels[name]["shapes"]:
             e["class_launches"] = by_class[name].get(e["class"], 0)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "launches",
+            "serve_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shapes", "entries", "fuses")
     return {"kernels": [{k: row[k] for k in keys if k in row}
@@ -2357,11 +2814,11 @@ def main() -> int:
     phase_profile(idx, queries,
                   make_clustered_vectors(256, DIM, seed=2))
     final = phase_maintenance(dev, idx, queries)
-    phase_backend(dev, final, queries)
+    served = phase_serve(dev, phase_backend(dev, final, queries), queries)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
-    emit(kernels_line(kernels, totals, by_class))
+    emit(kernels_line(kernels, totals, by_class, served))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

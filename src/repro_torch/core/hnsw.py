@@ -1075,7 +1075,9 @@ def tombstone_batch(cfg: HNSWConfig, state: HNSWState,
         & ~state.tombstone[safe]
     n_new = applies.sum().to(_I32)
     marks = torch.zeros((cfg.cap + 1,), dtype=torch.bool, device=dev)
-    marks[torch.where(applies, safe, cfg.cap)] = True
+    # index_fill_, not `marks[idx] = True`: a Python value there becomes
+    # a host tensor copied to the card, a blocking copy (a host sync)
+    marks.index_fill_(0, torch.where(applies, safe, cfg.cap), True)
     state.tombstone.logical_or_(marks[:cfg.cap])
     state = state._replace(
         n_tombstones=state.n_tombstones + n_new,

@@ -18,12 +18,13 @@ from __future__ import annotations
 
 import threading
 import time
+from contextlib import nullcontext
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch._device import resolve
+from repro_torch._device import resolve, upload
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import hnsw, iostats, lsm, reorder
 from repro_torch.core.backend import (
@@ -36,6 +37,7 @@ from repro_torch.core.backend import (
     UpdateResult,
 )
 from repro_torch.core.iostats import CostModel, IOStats
+from repro_torch.core.sentinel import declared_sync
 from repro_torch.core.traversal import stable_topk_asc
 from repro_torch.kernels import _build
 from repro_torch.kernels.l2_distance.ops import l2_distance
@@ -113,10 +115,11 @@ class DispatchedSearch:
         return self._done is None or self._done.query()
 
     def collect(self) -> SearchResult:
-        # sync-ok: collect() is the declared result sync point
-        ids = np.asarray(self._ids.cpu())
-        # sync-ok: collect() is the declared result sync point
-        dists = np.asarray(self._dists.cpu())
+        with declared_sync("search result materialization"):
+            # sync-ok: search result materialization, collect()'s read
+            ids = np.asarray(self._ids.cpu())
+            # sync-ok: search result materialization, collect()'s read
+            dists = np.asarray(self._dists.cpu())
         return SearchResult(ids=ids[:self._nq, :self._k],
                             dists=dists[:self._nq, :self._k])
 
@@ -139,7 +142,8 @@ class _Repair:
         self.src = clone_state(state)
         self.out = self.error = self.thread = None
         if state.vectors.device.type != "cuda":
-            with _build.variants(variants):
+            with _build.variants(variants), \
+                    declared_sync("repair worker reads"):
                 self.out = hnsw.consolidate(cfg, self.src)
             return
         dev = state.vectors.device
@@ -155,7 +159,8 @@ class _Repair:
     def _run(self, cfg, dev, variants) -> None:
         try:
             with torch.cuda.device(dev), torch.cuda.stream(self.side), \
-                    _build.variants(variants):
+                    _build.variants(variants), \
+                    declared_sync("repair worker reads"):
                 self.out = hnsw.consolidate(cfg, self.src)
                 self.done.record(self.side)
         except BaseException as e:      # re-raised by finish()
@@ -265,7 +270,8 @@ class LSMVecIndex:
         """Insert one vector; returns its id."""
         self._barrier_repair()
         new_id = self._count
-        with _build.variants(self._variants["insert"]):
+        with _build.variants(self._variants["insert"]), \
+                declared_sync("insert_batch host loop"):
             self.state, st = hnsw.insert(
                 self.cfg, self.state, torch.as_tensor(x, dtype=torch.float32),
                 self._uniforms(1)[0])
@@ -306,7 +312,8 @@ class LSMVecIndex:
             padded[:n] = chunk
             valid = torch.arange(width) < n
             ids.extend(range(self._count, self._count + n))
-            with _build.variants(self._variants[name]):
+            with _build.variants(self._variants[name]), \
+                    declared_sync("insert_batch host loop"):
                 out = hnsw.insert_batch(
                     self.cfg, self.state,
                     torch.from_numpy(padded).to(self.device),
@@ -324,12 +331,18 @@ class LSMVecIndex:
         return UpdateResult(ids=np.asarray(ids, np.int64),
                             n_applied=len(ids))
 
+    def _eager_scope(self):
+        """The eager relink reads the host item by item; a lazy delete
+        only sets tombstone bits on the device and reads nothing."""
+        return nullcontext() if self.cfg.lazy_delete \
+            else declared_sync("eager delete host loop")
+
     def delete(self, node_id: int) -> None:
         """Delete one id.  Lazy (the default) sets the tombstone bit only,
         so the cached read snapshot stays valid; eager relinks the
         neighbors (Algorithm 2), a graph write."""
         self._barrier_repair()
-        with _build.variants(self._variants["delete"]):
+        with _build.variants(self._variants["delete"]), self._eager_scope():
             self.state, st = hnsw.delete(self.cfg, self.state, node_id)
         if not self.cfg.lazy_delete:
             self._version += 1
@@ -350,10 +363,10 @@ class LSMVecIndex:
             chunk = ids[s:s + width]
             padded = np.full((width,), -1, np.int32)
             padded[:len(chunk)] = chunk
-            with _build.variants(self._variants["delete_batch"]):
+            with _build.variants(self._variants["delete_batch"]), \
+                    self._eager_scope():
                 self.state, st = hnsw.delete_batch(
-                    self.cfg, self.state,
-                    torch.from_numpy(padded).to(self.device))
+                    self.cfg, self.state, upload(padded, self.device))
             if not self.cfg.lazy_delete:
                 self._version += 1
             self.io_stats = self.io_stats + st
@@ -391,16 +404,14 @@ class LSMVecIndex:
             padded[:nq] = qs_np
             with _build.variants(self._variants["search_snapshot"]):
                 res = hnsw.search_batch(
-                    self.cfg, self.state,
-                    torch.from_numpy(padded).to(self.device),
+                    self.cfg, self.state, upload(padded, self.device),
                     snapshot=self.snapshot(),
-                    active=(torch.arange(width) < nq).to(self.device),
+                    active=upload(torch.arange(width) < nq, self.device),
                     record_heat=p.record_heat, **kw)
         else:
             with _build.variants(self._variants["search"]):
                 res = hnsw.search_batch(
-                    self.cfg, self.state,
-                    torch.from_numpy(qs_np).to(self.device), **kw)
+                    self.cfg, self.state, upload(qs_np, self.device), **kw)
         if p.record_heat:
             nodes = res.heat_nodes.reshape(-1)
             mask = res.heat_mask.reshape(-1, self.cfg.M)
@@ -463,8 +474,9 @@ class LSMVecIndex:
         """
         if op != "consolidate" or self._pending_repair is not None:
             return False
-        # sync-ok: one scalar read up front, at maintenance cadence
-        n = int(self.state.n_tombstones)
+        with declared_sync("maintenance cadence scalar"):
+            # sync-ok: maintenance cadence scalar, one read up front
+            n = int(self.state.n_tombstones)
         if n == 0:
             return False
         ratio = params.get("ratio")
@@ -501,8 +513,9 @@ class LSMVecIndex:
     def compact(self) -> None:
         """Major LSM compaction: every run merged into the last level."""
         self._barrier_repair()
-        self.state = self.state._replace(
-            store=lsm.compact_all(self.cfg.lsm_cfg, self.state.store))
+        with declared_sync("LSM compaction host reads"):
+            self.state = self.state._replace(
+                store=lsm.compact_all(self.cfg.lsm_cfg, self.state.store))
         self._version += 1
 
     def reorder(self, *, window: int = 8, lam: float = 1.0) -> np.ndarray:
@@ -518,14 +531,16 @@ class LSMVecIndex:
         self._barrier_repair()
         n = self._count
         live, rows = lsm.resolve_all(self.cfg.lsm_cfg, self.state.store, n)
-        live_np = (live.cpu().numpy() > 0) \
-            & (self.state.levels[:n].cpu().numpy() >= 0)
-        t0 = time.perf_counter()
-        perm = reorder.gorder_permutation(
-            rows.cpu().numpy(), self.state.heat[:n].cpu().numpy(),
-            window=window, lam=lam, live=live_np)
-        secs = time.perf_counter() - t0
-        self.state = reorder.apply_permutation(self.cfg, self.state, perm)
+        with declared_sync("reorder host relayout"):
+            live_np = (live.cpu().numpy() > 0) \
+                & (self.state.levels[:n].cpu().numpy() >= 0)
+            t0 = time.perf_counter()
+            perm = reorder.gorder_permutation(
+                rows.cpu().numpy(), self.state.heat[:n].cpu().numpy(),
+                window=window, lam=lam, live=live_np)
+            secs = time.perf_counter() - t0
+            self.state = reorder.apply_permutation(self.cfg, self.state,
+                                                   perm)
         self._version += 1
         return perm, secs
 
@@ -535,21 +550,26 @@ class LSMVecIndex:
         already sits inside the hysteresis band.  The graph is not
         written, so the cached read snapshot stays valid."""
         self._barrier_repair()
-        self.state, st, moved = tier_policy.tier_maintain(
-            self.cfg, self.state, policy)
+        with declared_sync("tier pass counts"):
+            self.state, st, moved = tier_policy.tier_maintain(
+                self.cfg, self.state, policy)
+            moved = {k: int(v) for k, v in moved.items()}
         self.io_stats = self.io_stats + st
-        return {k: int(v) for k, v in moved.items()}
+        return moved
 
     def consolidate(self, *, ratio: Optional[float] = None) -> int:
         """Splice tombstoned nodes out of the graph and reclaim their
         slots; returns the number reclaimed.  Ids are never reused."""
         self._barrier_repair()
-        n = self.n_tombstones
+        with declared_sync("maintenance cadence scalar"):
+            # sync-ok: maintenance cadence scalar, one read up front
+            n = int(self.state.n_tombstones)
         if n == 0:
             return 0
         if ratio is not None and n / max(self.size + n, 1) < ratio:
             return 0
-        self.state, st = hnsw.consolidate(self.cfg, self.state)
+        with declared_sync("consolidation host reads"):
+            self.state, st = hnsw.consolidate(self.cfg, self.state)
         self.io_stats = self.io_stats + st
         self._version += 1
         return n
@@ -566,8 +586,9 @@ class LSMVecIndex:
 
     def sync(self) -> None:
         """Block until the device has finished the work enqueued so far."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with declared_sync("explicit barrier"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     # -- backend protocol surface ---------------------------------------------
 
@@ -592,8 +613,8 @@ class LSMVecIndex:
             [st.n_live.long(), st.n_tombstones.long(),
              st.n_delete_noops.long()]
             + [c.long() for c in hnsw.memory_counts(st)])
-        # the single fused device read of the stats surface
-        live, nt, noops, *mem_counts = counts.tolist()
+        with declared_sync("stats surface fetch"):
+            live, nt, noops, *mem_counts = counts.tolist()
         mem = hnsw.memory_breakdown(self.cfg, st, mem_counts)
         shard = ShardStats(size=live, n_tombstones=nt, delete_noops=noops,
                            n_hot=mem.n_hot, n_cold=mem.n_cold)
@@ -603,8 +624,9 @@ class LSMVecIndex:
 
     def heat_total(self) -> int:
         """Accumulated edge-heat counts (one scalar read)."""
-        # sync-ok: one scalar read at the heat trigger's cadence
-        return int(self.state.heat.sum())
+        with declared_sync("heat trigger scalar"):
+            # sync-ok: heat trigger scalar, read at the heat cadence
+            return int(self.state.heat.sum())
 
     def initial_ids(self) -> np.ndarray:
         """Internal ids in allocation order, for seeding an external-id
@@ -644,9 +666,10 @@ class LSMVecIndex:
                     "version": self._version, "seed": self._seed,
                     "cap": self.cfg.cap, "dim": self.cfg.dim,
                     **(meta or {})}
-        return ckpt.save_checkpoint(ckpt_dir, step=int(lsn), tree=tree,
-                                    metadata=metadata, keep=keep,
-                                    _pre_publish=_pre_publish)
+        with declared_sync("checkpoint state fetch"):
+            return ckpt.save_checkpoint(ckpt_dir, step=int(lsn), tree=tree,
+                                        metadata=metadata, keep=keep,
+                                        _pre_publish=_pre_publish)
 
     @classmethod
     def restore(cls, cfg: hnsw.HNSWConfig, ckpt_dir: str, *,
@@ -716,14 +739,18 @@ class LSMVecIndex:
         return hnsw.memory_breakdown(self.cfg, self.state)
 
     def memory_bytes(self) -> int:
-        return int(self.memory_breakdown().total)
+        with declared_sync("memory accounting scalar"):
+            return int(self.memory_breakdown().total)
 
     @property
     def size(self) -> int:
         """Live (returnable) nodes; one scalar read."""
-        return int(self.state.n_live)  # sync-ok: declared accessor
+        with declared_sync("live-count scalar"):
+            return int(self.state.n_live)  # sync-ok: live-count scalar
 
     @property
     def n_tombstones(self) -> int:
         """Nodes lazily deleted but not yet consolidated; one scalar read."""
-        return int(self.state.n_tombstones)  # sync-ok: declared accessor
+        with declared_sync("tombstone-count scalar"):
+            # sync-ok: tombstone-count scalar
+            return int(self.state.n_tombstones)

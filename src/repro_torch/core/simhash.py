@@ -43,8 +43,9 @@ def collision_probability(cos_sim: torch.Tensor) -> torch.Tensor:
     """P[one SimHash bit collides] = 1 - angle / pi."""
     theta = torch.acos(torch.clamp(cos_sim, -1.0, 1.0).double()).float()
     # a tensor divisor: PyTorch's CUDA division by a host scalar multiplies
-    # by its reciprocal, which rounds differently from the CPU's division
-    pi = torch.tensor(math.pi, dtype=torch.float32, device=theta.device)
+    # by its reciprocal, which rounds differently from the CPU's division;
+    # made on the device, so no host→device copy
+    pi = torch.full((), math.pi, dtype=torch.float32, device=theta.device)
     return 1.0 - theta / pi
 
 

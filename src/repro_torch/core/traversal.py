@@ -30,6 +30,7 @@ import torch
 from repro_torch._device import host_any
 from repro_torch.core import simhash
 from repro_torch.core.iostats import IOStats
+from repro_torch.core.sentinel import declared_sync
 from repro_torch.kernels.gather_l2.ops import gather_l2
 from repro_torch.kernels.simhash.ops import collision_count_rows
 
@@ -168,8 +169,9 @@ def beam_search(
         frontier = (~expanded) & torch.isfinite(beam_d) \
             & (beam_d <= thresh[:, None])
         go = (it < iter_cap) & (n_hops < max_iters) & frontier.any(1)
-        if not host_any(go):
-            break
+        with declared_sync("loop-trip exit"):
+            if not host_any(go):
+                break
 
         # -- pop the B closest unexpanded candidates -----------------------
         frontier_d = torch.where(expanded, INF, beam_d)
@@ -306,7 +308,10 @@ def greedy_descent(
     d_ep = entry_dist.to(torch.float32)
     step = 0
     moved = torch.ones(ep.shape, dtype=torch.bool, device=q.device)
-    while step < max_steps and host_any(moved):
+    while step < max_steps:
+        with declared_sync("greedy-descent step"):
+            if not host_any(moved):
+                break
         row = adj[ep.long()]                                  # [Bq, M_up]
         valid = (row >= 0) & live[row.clamp(0, cap - 1).long()]
         # the gather kernel sums in one order on every device, so the

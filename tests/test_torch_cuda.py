@@ -20,7 +20,9 @@ launch) is bitwise equal to its plain version, and the loop route that
 takes it to the beam megakernel.  The index's overlapped consolidation
 (a worker thread on a second stream) leaves the state the serving
 stream's consolidation does, bitwise, and its snapshot patches equal a
-fresh resolve.
+fresh resolve.  The serving engine on the card answers a short stream as
+it does on the CPU, bitwise, and a guarded steady state with the sync
+sentinel's CUDA layer on raises nothing.
 """
 
 import numpy as np
@@ -751,3 +753,113 @@ def test_card_patched_snapshot_and_variants_settle():
     assert counts[-1] == counts[-2]
     assert counts[-1]["search_snapshot"] > 0
     assert counts[-1]["insert_batch_snapshot"] > 0
+
+
+def _serve_pair(dev, *, n=600, cap=4096, dim=32, seed=5):
+    """Two engines over one built state, on the CPU and on the card (the
+    build runs once, on the CPU, and its tensors are copied over), and
+    the integer rows the stream draws from."""
+    from repro_torch.core import lsm
+    from repro_torch.core.hnsw import HNSWConfig
+    from repro_torch.core.index import LSMVecIndex
+    from repro_torch.serve import MaintenancePolicy, ServeConfig, ServeEngine
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-3, 4, (n + 512, dim)).astype(np.float32)
+    cfg = HNSWConfig(cap=cap, dim=dim, M=8, M_up=4, ef_search=24,
+                     ef_construction=24, fused_beam=True)
+    cpu = LSMVecIndex.build(cfg, rows[:n], seed=seed, device="cpu")
+    card = LSMVecIndex(cfg, seed=seed, device=dev, state=lsm.hydrate(
+        cpu.state, {k: t.to(dev) for k, t in
+                    lsm.dehydrate(cpu.state).items()}))
+    card._rng.set_state(cpu._rng.get_state())
+    scfg = ServeConfig(query_batch=32, insert_batch=32, delete_batch=32,
+                       maintenance=MaintenancePolicy(
+                           tombstone_ratio=None, consolidate_ratio=0.02,
+                           heat_budget=None, check_every=2))
+    return (ServeEngine(cpu, scfg), ServeEngine(card, scfg), rows[n:], n)
+
+
+def _serve_rounds(eng, rows, rng, n_rounds, next_del):
+    """Rounds of mixed traffic: a few queries, then an insert or a delete
+    of a live external id; each round drained.  Returns the tickets."""
+    out = []
+    for r in range(n_rounds):
+        for _ in range(int(rng.integers(1, 40))):
+            out.append(eng.submit_query(rows[int(rng.integers(0, len(rows)))]))
+        if r % 2 == 0:
+            for _ in range(int(rng.integers(1, 40))):
+                out.append(eng.submit_insert(
+                    rows[int(rng.integers(0, len(rows)))] + 1))
+        else:
+            for _ in range(int(rng.integers(1, 40))):
+                out.append(eng.submit_delete(next_del[0]))
+                next_del[0] += 1
+        eng.drain()
+    return out
+
+
+@pytest.mark.cuda
+def test_card_serves_a_stream_as_the_cpu_does():
+    """One short served stream (queries through the beam megakernel,
+    inserts, lazy deletes, an overlapped consolidation on the second
+    stream): every ticket, the batch log and the final state on the
+    card equal the CPU's, bitwise."""
+    dev = _cuda()
+    cpu, card, rows, _ = _serve_pair(dev)
+    got = {}
+    for name, eng in (("cpu", cpu), ("card", card)):
+        got[name] = [t.result(timeout=120) for t in _serve_rounds(
+            eng, rows, np.random.default_rng(1), 10, [0])]
+    for a, b in zip(got["cpu"], got["card"]):
+        if hasattr(a, "ids"):
+            np.testing.assert_array_equal(a.ids, b.ids)
+            np.testing.assert_array_equal(a.dists, b.dists)
+        else:
+            assert a == b
+    assert len(got["cpu"]) == len(got["card"])
+    assert card.batch_log == cpu.batch_log
+    assert card.metrics.maintenance_runs["consolidate"] \
+        == cpu.metrics.maintenance_runs["consolidate"] > 0
+    torch.cuda.synchronize()
+    from repro_torch.core import lsm
+    sa, sb = lsm.dehydrate(cpu.backend.state), lsm.dehydrate(
+        card.backend.state)
+    for k in sa:
+        assert torch.equal(sa[k], sb[k].cpu()), k
+
+
+@pytest.mark.cuda
+def test_guarded_steady_state_on_the_card():
+    """Serving after warm-up under `forbid_undeclared_sync()` with both
+    layers on (the CUDA layer is `set_sync_debug_mode("error")`): nothing
+    raises, no new kernel variant is launched, and a consolidation
+    overlapped on the second stream runs inside the guarded phase."""
+    from repro_torch.core.sentinel import (
+        declared_sync,
+        forbid_undeclared_sync,
+        reset_sync_counts,
+        sync_counts,
+    )
+    dev = _cuda()
+    _, card, rows, _ = _serve_pair(dev)
+    rng, next_del = np.random.default_rng(2), [0]
+    _serve_rounds(card, rows, rng, 12, next_del)
+    warm = card.backend.trace_counts()
+    before = card.metrics.maintenance_runs["consolidate"]
+    assert torch.cuda.get_sync_debug_mode() == 0
+    reset_sync_counts()
+    with forbid_undeclared_sync():
+        assert torch.cuda.get_sync_debug_mode() == 2
+        with declared_sync("test escape"):
+            assert torch.cuda.get_sync_debug_mode() == 0
+        assert torch.cuda.get_sync_debug_mode() == 2
+        tickets = _serve_rounds(card, rows, rng, 12, next_del)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert all(t.done for t in tickets)
+    assert card.backend.trace_counts() == warm
+    assert card.metrics.maintenance_runs["consolidate"] > before
+    counts = sync_counts()
+    for reason in ("search result materialization", "greedy-descent step",
+                   "insert_batch host loop", "repair worker reads",
+                   "stats surface fetch"):
+        assert counts.get(reason, 0) > 0, (reason, counts)
