@@ -101,8 +101,26 @@ script exits non-zero and prints no result):
              Python and CUDA layers on) that raises nothing and launches
              no new kernel variant; WAL, checkpoint and recovery seconds
              and the declared host syncs per served request
+  sharded    sharded search (`repro_torch.core.distributed`): the flat
+             index over 1,000,000 x 128 rows on 8 shards (recall@10 1.0,
+             distances allclose to the plain version's) and on 7 (the
+             last shard padded with +inf rows: no padded id returned);
+             a 4-shard backend of the main path's 1,048,576 ids (32,768
+             base rows): every route bitwise equal to the shards searched
+             alone and merged, insert_batch of 1,024, 1 % deletes,
+             consolidation, an overlapped consolidation under fused
+             searches, a short served stream (every query checked),
+             reorder (ids through the composed perm), save -> restore
+             bitwise; a small integer-valued run, card against the CPU
+  baselines  DiskANN (32,768 rows) and SPFresh (131,072 rows) at the
+             settings of benchmarks/common.py: build seconds, QPS and
+             recall@10 of 1,000 queries, 256 inserts, 1 % deletes,
+             memory and I/O counters, results checked; small runs, card
+             against the CPU
 
-The line before the last is {"kernels": [...]}; the last line is
+The `kernels` line counts each kernel's launches on the main path, and
+apart those of the serve, sharded and baselines phases (checks not
+counted).  The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  It needs no network and one card, and
 exits non-zero when no card is present or the port's sources are not
 beside it.
@@ -166,6 +184,22 @@ MATRIX_OPS, MATRIX_CHUNK, MATRIX_CKPT_EVERY = 60, 10, 8
 #: kernels every served stream launches (queries through the beam
 #: megakernel, inserts through the gathers and the fused prefilter)
 SERVE_PATH = ("beam", "simhash_encode", "gather_l2", "prefilter_gather")
+# the sharded phase: the flat index over SIFT1M's count and width on 8
+# shards, and on 7 (ragged: the last shard padded with 6 rows of +inf);
+# the backend on 4 shards of the main path's id space (4 x 262,144 =
+# 1,048,576 ids), its base cut from 131,072 rows (the bulk build is host
+# numpy), and a short served stream over it (queries, inserts, deletes)
+FLAT_ROWS, FLAT_SHARDS, RAGGED_SHARDS = 1_000_000, 8, 7
+SHARDS, SHARD_CAP, SHARD_BASE, SHARD_INSERTS = 4, 1 << 18, 32_768, 1024
+SHARD_SERVE = (512, 64, 32)
+# the baselines at the settings of benchmarks/common.py
+DISKANN_ROWS, DISKANN_KW = 32_768, dict(M=12, ef=48)
+SPFRESH_ROWS, SPFRESH_KW = 131_072, dict(posting_cap=64, n_probe=3)
+BASELINE_INSERTS = 256
+#: kernels the sharded phase's run launches: the flat index's dense
+#: distances, and the shards' searches (both routes) and inserts
+SHARDED_PATH = ("l2_distance", "beam", "simhash_encode", "gather_l2",
+                "prefilter_gather")
 
 
 def emit(obj) -> None:
@@ -2709,9 +2743,477 @@ def phase_serve(dev, b, queries):
     return serve_launches
 
 
-def kernels_line(kernels, totals, by_class, served) -> dict:
-    """The `kernels` line: each row with its main-path launches and its
-    serve-phase launches (`serve_launches`), and each timed shape of
+def _zero_launches():
+    wrappers = launch_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+@contextmanager
+def uncounted():
+    """Launches made inside the block (a check: ground truth, a search
+    repeated shard by shard) are taken back out of the counts."""
+    wrappers = launch_counters()
+    saved = {n: w.launches for n, w in wrappers.items()}
+    try:
+        yield
+    finally:
+        for n, w in wrappers.items():
+            w.launches = saved[n]
+
+
+def _merge_alone(be, queries, params):
+    """Each shard of `be` searched alone, its ids made global, and the
+    stable host merge: what `be.search` must give."""
+    from repro_torch.core.backend import merge_topk
+    gids, dists = [], []
+    for s, sh in enumerate(be.shards):
+        r = sh.search(queries, K, params=params)
+        gids.append(np.where(r.ids >= 0,
+                             r.ids.astype(np.int64) + s * be.cfg.cap, -1))
+        dists.append(r.dists)
+    return merge_topk(gids, dists, K)
+
+
+def _sharded_view(be, **flags):
+    """A read-only `ShardedBackend` over `be`'s shard states under
+    another configuration (`view` of each shard)."""
+    from repro_torch.core.distributed import ShardedBackend
+    v = ShardedBackend(be.cfg._replace(**flags), be.n_shards,
+                       devices=be.devices, seed=be.seed)
+    v._shards = [view(sh, **flags) for sh in be.shards]
+    return v
+
+
+def _sharded_host(be):
+    """(vectors [cap, d] by global id, live [cap]) on the host."""
+    vecs = np.zeros((be.cap, be.cfg.dim), np.float32)
+    live = np.zeros(be.cap, bool)
+    for s, sh in enumerate(be.shards):
+        n, base = sh._count, s * be.cfg.cap
+        vecs[base:base + n] = sh.state.vectors[:n].cpu().numpy()
+        live[base:base + n] = ((sh.state.levels[:n] >= 0)
+                               & ~sh.state.tombstone[:n]).cpu().numpy()
+    return vecs, live
+
+
+def _sharded_small(dev):
+    """Card against the CPU on a small integer-valued run: the flat index
+    on 7 shards (padded) and a 2-shard backend at cap 4,096 a shard
+    through build, both routes, inserts, deletes, an overlapped and a
+    synchronous consolidation and a reordering: every id, distance, perm
+    and state field bitwise."""
+    from repro_torch.bridge import sharded_backend_to_numpy
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.distributed import ShardedBackend, ShardedFlatIndex
+    from repro_torch.core.hnsw import HNSWConfig
+    rng = np.random.default_rng(61)
+    data = rng.integers(-4, 5, (6000, 65)).astype(np.float32)
+    xs = rng.integers(-4, 5, (256, 65)).astype(np.float32)
+    qs = rng.integers(-4, 5, (200, 65)).astype(np.float32)
+    same = {}
+    flat = [ShardedFlatIndex(RAGGED_SHARDS, devices=[d]).build(data).search(
+        qs) for d in (dev, "cpu")]
+    same["flat"] = all(np.array_equal(a, b) for a, b in zip(*flat))
+    cfg = HNSWConfig(cap=4096, dim=65)
+    out = {}
+    for d in (dev, "cpu"):
+        be = ShardedBackend(cfg, 2, devices=[d]).build(data[:3000], seed=9)
+        res = []
+
+        def routes():
+            res.extend(be.search(qs, K, params=SearchParams(
+                use_snapshot=snap)) for snap in (False, True))
+        routes()
+        res.append(be.insert_batch(xs, pad_to=64))
+        be.delete_batch(be.initial_ids()[::50])
+        routes()
+        be.begin_maintain("consolidate")
+        routes()
+        be.poll_maintain(block=True)
+        be.delete_batch(be.initial_ids()[1::50])
+        be.maintain("consolidate")
+        routes()
+        res.append(be.maintain("reorder").perm)
+        routes()
+        out[d if d == "cpu" else "card"] = (res, sharded_backend_to_numpy(be))
+
+    def eq(a, b):
+        if hasattr(a, "ids"):
+            return np.array_equal(a.ids, b.ids) and (
+                not hasattr(a, "dists") or np.array_equal(a.dists, b.dists))
+        return np.array_equal(a, b)
+    (ra, sa), (rb, sb) = out["card"], out["cpu"]
+    same["backend_results"] = all(eq(a, b) for a, b in zip(ra, rb))
+    same["backend_state"] = sa.keys() == sb.keys() and all(
+        np.array_equal(sa[k], sb[k]) for k in sa)
+    return same
+
+
+def phase_sharded(dev, queries):
+    """Sharded search on the card (`repro_torch.core.distributed`):
+
+    1. `ShardedFlatIndex` over 1,000,000 rows x 128 (SIFT1M's count and
+       width) of `make_clustered_vectors`, 8 shards on the card: recall@10
+       1.0 against `brute_force_knn`, distances allclose to the same
+       search with `l2_distance` swapped for its plain version; then 7
+       shards, the last one padded with 6 rows of +inf: no padded id
+       returned, recall 1.0;
+    2. `ShardedBackend`, 4 shards of 262,144 ids, the main path's
+       configuration (fused route), 32,768 base rows: searches on the
+       probe, snapshot loop and fused routes, each bitwise equal to the
+       shards searched alone and merged by `merge_topk`; `insert_batch`
+       of 1,024; 1 % lazy deletes; `maintain("consolidate")`; an
+       overlapped consolidation under fused searches; `maintain
+       ("reorder")`, its composed perm mapping the ids; `save` ->
+       `restore` under build/ (removed after), bitwise; a short
+       deterministic served stream, every query checked as `serve`
+       checks;
+    3. a small integer-valued run, card against the CPU (`_sharded_small`).
+
+    Returns the launches of each kernel in 1 and 2.
+    """
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.distributed import ShardedBackend, ShardedFlatIndex
+    from repro_torch.core.hnsw import HNSWConfig
+    from repro_torch.core.index import brute_force_knn, recall_at_k
+    from repro_torch.data.synth import make_clustered_vectors
+    from repro_torch.kernels.l2_distance.ref import l2_distance_ref
+    from repro_torch.serve import MaintenancePolicy, ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    emit({"phase": "sharded", "reduced": {
+        "backend_base_rows": SHARD_BASE, "of": N_BASE,
+        "why": "the shards' bulk build is host numpy (PERF.md §5); the "
+               "flat index holds SIFT1M's 1,000,000 rows"}})
+    wrappers = _zero_launches()
+
+    # 1. the flat index
+    data = make_clustered_vectors(FLAT_ROWS, DIM, seed=71)
+    t0 = time.perf_counter()
+    with uncounted():
+        truth = brute_force_knn(data, queries, K)
+    truth_s = time.perf_counter() - t0
+    flat = ShardedFlatIndex(FLAT_SHARDS).build(data)
+    search_s, (ids, dists) = wall_s(lambda: flat.search(queries, K))
+    kernel_fn = distributed.l2_distance
+    distributed.l2_distance = l2_distance_ref
+    try:
+        plain_s, (p_ids, p_dists) = wall_s(lambda: flat.search(queries, K))
+    finally:
+        distributed.l2_distance = kernel_fn
+    ragged = ShardedFlatIndex(RAGGED_SHARDS).build(data)
+    r_ids, _ = ragged.search(queries, K)
+    rec = dict(step="sharded_flat", rows=FLAT_ROWS, shards=FLAT_SHARDS,
+               n_per=flat.n_per, seconds=search_s,
+               qps=N_QUERIES / search_s, plain_seconds=plain_s,
+               brute_force_seconds=truth_s,
+               recall_at_10=recall_at_k(ids, truth),
+               dists_allclose_plain=bool(np.allclose(dists, p_dists,
+                                                     rtol=1e-5)),
+               ids_equal_plain=float((ids == p_ids).mean()),
+               ragged_shards=RAGGED_SHARDS,
+               ragged_padded_rows=ragged.n_per * RAGGED_SHARDS - FLAT_ROWS,
+               ragged_padded_ids_returned=int((r_ids >= FLAT_ROWS).sum()),
+               ragged_recall_at_10=recall_at_k(r_ids, truth))
+    emit(rec)
+    if not (rec["recall_at_10"] == 1.0 and rec["dists_allclose_plain"]
+            and rec["ragged_padded_rows"] > 0
+            and rec["ragged_padded_ids_returned"] == 0
+            and rec["ragged_recall_at_10"] == 1.0):
+        raise AssertionError(f"sharded flat index: {rec}")
+    del flat, ragged, data
+    torch.cuda.empty_cache()
+
+    # 2. the backend
+    cfg = HNSWConfig(cap=SHARD_CAP, dim=DIM, fused_beam=True)
+    rows = make_clustered_vectors(SHARD_BASE + SHARD_INSERTS
+                                  + SHARD_SERVE[1], DIM, seed=72)
+    base, extra, fresh = np.split(rows, [SHARD_BASE,
+                                         SHARD_BASE + SHARD_INSERTS])
+    build_s, be = wall_s(lambda: ShardedBackend(cfg, SHARDS).build(
+        base, seed=5), reps=1)
+    emit({"step": "sharded_build", "seconds": build_s, "rows": SHARD_BASE,
+          "shards": SHARDS, "per_shard": [sh._count for sh in be.shards]})
+
+    def truth_now():
+        vecs, live = _sharded_host(be)
+        with uncounted():
+            return vecs, live, brute_force_knn(vecs, queries, K, live=live)
+
+    def routes(name, vecs, live, truth):
+        out = {}
+        for route, index, snap in (
+                ("probe", be, False),
+                ("snapshot", _sharded_view(be, fused_beam=False), True),
+                ("fused", be, True)):
+            p = SearchParams(use_snapshot=snap)
+            secs, res = wall_s(lambda: index.search(queries, K, params=p),
+                               reps=1)
+            with uncounted():
+                alone = _merge_alone(index, queries, p)
+            check_result(res, queries, vecs, live)
+            out[route] = dict(
+                seconds=secs, qps=N_QUERIES / secs,
+                recall_at_10=recall_at_k(res.ids, truth),
+                equals_shards_merged=bool(
+                    np.array_equal(res.ids, alone.ids)
+                    and np.array_equal(res.dists, alone.dists)))
+            if not out[route]["equals_shards_merged"] \
+                    or out[route]["recall_at_10"] < RECALL_FLOOR:
+                raise AssertionError(f"{name} {route}: {out[route]}")
+            out[route]["ids"] = res.ids
+        emit({"step": name, **{r: {k: v for k, v in o.items() if k != "ids"}
+                               for r, o in out.items()}})
+        return out
+
+    vecs, live, truth = truth_now()
+    routes("sharded_search", vecs, live, truth)
+    ins_s, got = wall_s(lambda: be.insert_batch(extra), reps=1)
+    per_shard = np.bincount(got.ids // SHARD_CAP, minlength=SHARDS)
+    emit({"step": "sharded_insert_batch", "seconds": ins_s,
+          "inserts_per_s": len(extra) / ins_s,
+          "per_shard": per_shard.tolist()})
+    if got.n_applied != len(extra) or (got.ids < 0).any():
+        raise AssertionError(f"sharded insert_batch: {got}")
+    rng = np.random.default_rng(73)
+    live_ids = be.initial_ids()
+    dels = rng.choice(live_ids, int(DELETE_FRACTION * len(live_ids)),
+                      replace=False)
+    del_s, res = wall_s(lambda: be.delete_batch(dels), reps=1)
+    cons_s, rep = wall_s(lambda: be.maintain("consolidate"), reps=1)
+    emit({"step": "sharded_delete_consolidate", "deleted": len(dels),
+          "delete_seconds": del_s, "consolidate_seconds": cons_s,
+          "reclaimed": rep.reclaimed, "consolidations": be.consolidations})
+    if res.n_applied != len(dels) or rep.reclaimed != len(dels):
+        raise AssertionError(f"sharded delete/consolidate: {rep}")
+    vecs, live, truth = truth_now()
+    before = routes("sharded_search_after_updates", vecs, live, truth)
+
+    # an overlapped consolidation under fused searches
+    dels2 = rng.choice(np.flatnonzero(live), len(dels), replace=False)
+    be.delete_batch(dels2)
+    p = SearchParams(use_snapshot=True)
+    served, t0 = 0, time.perf_counter()
+    if not be.begin_maintain("consolidate"):
+        raise AssertionError("sharded begin_maintain started no repair")
+    while (rep := be.poll_maintain()) is None:
+        be.search(queries, K, params=p)
+        served += 1
+    over_s = time.perf_counter() - t0
+    emit({"step": "sharded_overlapped_consolidate", "seconds": over_s,
+          "searches_during_repair": served, "reclaimed": rep.reclaimed,
+          "shards": rep.detail.get("shards")})
+    if rep.reclaimed != len(dels2):
+        raise AssertionError(f"sharded overlapped consolidate: {rep}")
+
+    # a short deterministic served stream
+    n_q, n_i, n_d = SHARD_SERVE
+    _, live = _sharded_host(be)
+    live_g = be.initial_ids()
+    live_g = live_g[live[live_g]]
+    sched = ServeConfig(query_batch=SERVE_BATCH, insert_batch=SERVE_BATCH,
+                        delete_batch=SERVE_BATCH,
+                        maintenance=MaintenancePolicy(
+                            tombstone_ratio=None, heat_budget=None,
+                            consolidate_ratio=5e-4, check_every=2))
+    eng = ServeEngine(be, sched)
+    int2ext = {int(g): e for e, g in enumerate(be.initial_ids())}
+    d_ext = [int2ext[int(g)] for g in rng.choice(live_g, n_d, replace=False)]
+    ops = _mix(rng, n_q, n_i, n_d, queries, fresh, d_ext)
+    served_q, ack = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _drive_chunks(eng, ops, served_q, ack, 0)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    vecs, _ = _sharded_host(be)
+    _check_served(eng, served_q, ack, vecs)
+    emit({"step": "sharded_serve", "seconds": serve_s, "requests": len(ops),
+          "requests_per_s": len(ops) / serve_s,
+          "queries_checked": len(served_q), "acked_deletes": len(ack),
+          "consolidations": eng.maintenance.consolidations,
+          "metrics": eng.metrics.snapshot()})
+    eng.close()
+    # reorder: ids through the composed perm, dists unchanged
+    pre = be.search(queries, K, params=p)
+    reorder_s, rep = wall_s(lambda: be.maintain("reorder"), reps=1)
+    post = be.search(queries, K, params=p)
+    mapped = np.where(pre.ids >= 0, rep.perm[np.maximum(pre.ids, 0)], -1)
+    ok = bool(np.array_equal(post.ids, mapped)
+              and np.array_equal(post.dists, pre.dists))
+    emit({"step": "sharded_reorder", "seconds": reorder_s,
+          "perm_maps_ids": ok})
+    if not ok:
+        raise AssertionError("sharded reorder: ids do not map through perm")
+
+    # save -> restore
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_shard_ckpt_", dir=build_dir)
+    try:
+        save_s, path = wall_s(lambda: be.save(tmp, lsn=3), reps=1)
+        n_bytes = sum(f.stat().st_size for f in Path(path).rglob("*")
+                      if f.is_file())
+        restore_s, (back, _, _) = wall_s(lambda: ShardedBackend.restore(
+            cfg, tmp, n_shards=SHARDS), reps=1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(_same_state(a, b) and a._count == b._count
+               for a, b in zip(be.shards, back.shards)) \
+        and back._alloc == be._alloc and back._n_routed == be._n_routed
+    emit({"step": "sharded_save_restore", "save_seconds": save_s,
+          "restore_seconds": restore_s, "checkpoint_bytes": n_bytes,
+          "bitwise": same})
+    if not same:
+        raise AssertionError("sharded save/restore differs")
+    del back
+    torch.cuda.empty_cache()
+
+    launches = {n: w.launches for n, w in wrappers.items()}
+    missing = [n for n in SHARDED_PATH if not launches[n]]
+    if missing:
+        raise AssertionError(f"the sharded phase never launched {missing}: "
+                             f"{launches}")
+
+    # 3. card against the CPU, small
+    same = _sharded_small(dev)
+    emit({"step": "sharded_parity_small", "bitwise": same})
+    if not all(same.values()):
+        raise AssertionError(f"sharded card vs CPU: {same}")
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
+def _baselines_small(dev):
+    """Card against the CPU on small runs: DiskANN over integer-valued
+    rows bitwise (graph, searches, inserts); SPFresh over float rows, its
+    postings and search ids equal except where a row's two nearest
+    centroids (a query's last probed and first unprobed) lie within 1e-5
+    relative of each other, counted."""
+    from repro_torch.core.baselines import DiskANNIndex, SPFreshIndex
+    from repro_torch.data.synth import make_clustered_vectors
+    rng = np.random.default_rng(81)
+    ints = rng.integers(-4, 5, (3000, 128)).astype(np.float32)
+    dk = [DiskANNIndex.build(ints[:2900], seed=2, device=d, **DISKANN_KW)
+          for d in (dev, "cpu")]
+    for x in ints[2900:2964]:
+        dk[0].insert(x)
+        dk[1].insert(x)
+    ra, rb = dk[0].search(ints[2964:]), dk[1].search(ints[2964:])
+    diskann = (dk[0].entry == dk[1].entry
+               and all(np.array_equal(a, b) for a, b in zip(dk[0].adj,
+                                                            dk[1].adj))
+               and all(np.array_equal(a, b) for a, b in zip(ra, rb)))
+    data = make_clustered_vectors(8192, 128, seed=82)
+    qs = make_clustered_vectors(200, 128, seed=83)
+    sp = [SPFreshIndex.build(data, seed=3, device=d, **SPFRESH_KW)
+          for d in (dev, "cpu")]
+
+    def near_tie(d, rank):
+        s = np.sort(d)
+        return bool(s[rank + 1] - s[rank] <= 1e-5 * s[rank + 1])
+
+    own = []
+    for ix in sp:
+        o = np.full(len(ix.vectors), -1)
+        for c, p in enumerate(ix.postings):
+            o[np.asarray(p, np.int64)] = c
+        own.append(o)
+    apart = np.flatnonzero(own[0] != own[1])
+    ia, ib = sp[0].search(qs)[0], sp[1].search(qs)[0]
+    rows = np.flatnonzero((ia != ib).any(1))
+    ties = all(near_tie(((sp[1].centroids - data[r]) ** 2).sum(1), 0)
+               for r in apart) and all(
+        near_tie(((sp[1].centroids - qs[i]) ** 2).sum(1),
+                 SPFRESH_KW["n_probe"] - 1) for i in rows)
+    return dict(diskann_bitwise=diskann, spfresh_rows_apart=len(apart),
+                spfresh_queries_apart=len(rows), spfresh_apart_on_ties=ties)
+
+
+def phase_baselines(dev, queries):
+    """The DiskANN-like and SPFresh-like baselines
+    (`repro_torch.core.baselines`) on the card, at the settings of
+    benchmarks/common.py: DiskANN over 32,768 rows, SPFresh over
+    131,072; for each the build seconds, 1,000 queries (QPS, recall@10
+    against `brute_force_knn`), 256 inserts (inserts/s), 1 % deletes,
+    `memory_bytes` and `io_stats`; then small runs, card against the CPU
+    (`_baselines_small`).  Returns the launches of each kernel in the
+    full-size runs."""
+    import torch
+
+    from repro_torch.core.backend import SearchResult
+    from repro_torch.core.baselines import DiskANNIndex, SPFreshIndex
+    from repro_torch.core.index import brute_force_knn, recall_at_k
+    from repro_torch.data.synth import make_clustered_vectors
+
+    t_phase = time.perf_counter()
+    wrappers = _zero_launches()
+    for name, cls, rows, kw in (
+            ("diskann", DiskANNIndex, DISKANN_ROWS, DISKANN_KW),
+            ("spfresh", SPFreshIndex, SPFRESH_ROWS, SPFRESH_KW)):
+        data = make_clustered_vectors(rows + BASELINE_INSERTS, DIM, seed=91)
+        base, fresh = data[:rows], data[rows:]
+        with uncounted():
+            truth = brute_force_knn(base, queries, K)
+        build_s, idx = wall_s(lambda: cls.build(base, **kw), reps=1)
+        idx.reset_stats()
+        search_s, (ids, dists) = wall_s(lambda: idx.search(queries, K),
+                                        reps=1)
+        io_search = [int(v) for v in idx.io_stats]
+        recall = recall_at_k(ids, truth)
+        ins_s, _ = wall_s(lambda: [idx.insert(x) for x in fresh], reps=1)
+        dels = np.random.default_rng(92).choice(
+            rows, int(DELETE_FRACTION * rows), replace=False)
+        del_s, _ = wall_s(lambda: [idx.delete(int(v)) for v in dels], reps=1)
+        after = SearchResult(*idx.search(queries, K))
+        rec = dict(step=f"baseline_{name}", rows=rows, **kw,
+                   build_seconds=build_s, search_seconds=search_s,
+                   qps=N_QUERIES / search_s, recall_at_10=recall,
+                   inserts=len(fresh), inserts_per_s=len(fresh) / ins_s,
+                   deletes=len(dels), deletes_per_s=len(dels) / del_s,
+                   deleted_returned=int(np.isin(after.ids, dels).sum()),
+                   memory_bytes=idx.memory_bytes(), size=idx.size,
+                   io_stats_search=dict(zip(
+                       ("n_adj", "n_vec", "n_filtered", "n_hops"),
+                       io_search)),
+                   io_stats_total=dict(zip(
+                       ("n_adj", "n_vec", "n_filtered", "n_hops"),
+                       (int(v) for v in idx.io_stats))))
+        emit(rec)
+        # no recall floor: SPFresh's 3 probes of 64-row postings see a
+        # small share of a cluster by design; the results must be well
+        # formed, live and at the rows' distances
+        check_result(after, queries, idx.vectors, idx.live)
+        if rec["deleted_returned"] \
+                or idx.size != rows + len(fresh) - len(dels):
+            raise AssertionError(f"baseline {name}: {rec}")
+        del idx, data
+    launches = {n: w.launches for n, w in wrappers.items()}
+    if not launches["l2_distance"]:
+        raise AssertionError(f"the baselines never launched l2_distance: "
+                             f"{launches}")
+    torch.cuda.synchronize()
+    same = _baselines_small(dev)
+    emit({"step": "baselines_parity_small", **same})
+    if not (same["diskann_bitwise"] and same["spfresh_apart_on_ties"]):
+        raise AssertionError(f"baselines card vs CPU: {same}")
+    emit({"phase": "baselines", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
+def kernels_line(kernels, totals, by_class, served, sharded,
+                 baselines) -> dict:
+    """The `kernels` line: each row with its main-path launches, its
+    serve-phase launches (`serve_launches`) and those of the sharded and
+    baselines phases (`sharded_launches`, `baselines_launches`), and each
+    timed shape of
     `gather_l2` and `l2_distance` with its shape class (the kernel
     variant its wrapper's `shape_class` names) and that class's
     launches."""
@@ -2720,6 +3222,8 @@ def kernels_line(kernels, totals, by_class, served) -> dict:
     for name, row in kernels.items():
         row["launches"] = totals[name]
         row["serve_launches"] = served[name]
+        row["sharded_launches"] = sharded[name]
+        row["baselines_launches"] = baselines[name]
     kernels["collision_count_rows"]["entries"]["collision_count"][
         "launches"] = totals["collision_count"]
     for e in kernels["gather_l2"]["shapes"]:
@@ -2731,7 +3235,8 @@ def kernels_line(kernels, totals, by_class, served) -> dict:
         for e in kernels[name]["shapes"]:
             e["class_launches"] = by_class[name].get(e["class"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
-            "serve_launches", "max_abs_err",
+            "serve_launches", "sharded_launches", "baselines_launches",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shapes", "entries", "fuses")
     return {"kernels": [{k: row[k] for k in keys if k in row}
@@ -2815,10 +3320,14 @@ def main() -> int:
                   make_clustered_vectors(256, DIM, seed=2))
     final = phase_maintenance(dev, idx, queries)
     served = phase_serve(dev, phase_backend(dev, final, queries), queries)
+    del idx, final
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(dev, queries)
+    baselines = phase_baselines(dev, queries)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
-    emit(kernels_line(kernels, totals, by_class, served))
+    emit(kernels_line(kernels, totals, by_class, served, sharded, baselines))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,7 +6,9 @@ with its tree under "store/") — and `*_from_numpy` builds the port's
 tensors from such a dict.  `*_to_numpy` is the inverse, so a test can
 compare the two packages field by field, the tier lanes ("hot",
 "qvecs", "qscale", "tier_heat") included.  SimHash words are uint32 in
-the reference and int64 here.
+the reference and int64 here.  A sharded backend crosses shard by shard
+(each state under "shard_XX/") with its routing state beside it; the
+baselines' state is numpy in both packages and needs no bridge.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import hnsw, lsm
+from repro_torch.core.distributed import ShardedBackend
+from repro_torch.core.index import LSMVecIndex
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -82,4 +86,39 @@ def hnsw_state_to_numpy(st: hnsw.HNSWState) -> dict:
             out[name] = val.cpu().numpy().astype(np.uint32)
         else:
             out[name] = val.cpu().numpy()
+    return out
+
+
+def sharded_backend_from_numpy(cfg: hnsw.HNSWConfig, d: dict,
+                               devices=None) -> ShardedBackend:
+    """A `ShardedBackend` from a flat dict: shard s's state under
+    "shard_XX/" (keyed as for `hnsw_state_from_numpy`) and the routing
+    state: "n_shards", "seed", "n_routed" (the allocation counter),
+    "alloc" (global ids in allocation order) and "consolidations" (the
+    per-shard log)."""
+    n = int(d["n_shards"])
+    be = ShardedBackend(cfg, n, devices=devices, seed=int(d["seed"]))
+    shards = []
+    for s in range(n):
+        pre = f"shard_{s:02d}/"
+        sub = {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}
+        dev = be.devices[s]
+        shards.append(LSMVecIndex(cfg, seed=be.seed + s, device=dev,
+                                  state=hnsw_state_from_numpy(sub, dev)))
+    be._shards = shards
+    be._n_routed = int(d["n_routed"])
+    be._alloc = np.asarray(d["alloc"], np.int64).tolist()
+    be.consolidations = [int(c) for c in d["consolidations"]]
+    return be
+
+
+def sharded_backend_to_numpy(be: ShardedBackend) -> dict:
+    """The inverse of `sharded_backend_from_numpy`."""
+    out = {"n_shards": be.n_shards, "seed": be.seed,
+           "n_routed": be._n_routed,
+           "alloc": np.asarray(be._alloc, np.int64),
+           "consolidations": np.asarray(be.consolidations, np.int64)}
+    for s, sh in enumerate(be.shards):
+        out.update({f"shard_{s:02d}/{k}": v
+                    for k, v in hnsw_state_to_numpy(sh.state).items()})
     return out

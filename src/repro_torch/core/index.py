@@ -81,6 +81,16 @@ def recall_at_k(found_ids: np.ndarray, true_ids: np.ndarray,
     return hits / (k * len(t))
 
 
+def build_draws(cfg: hnsw.HNSWConfig, n: int, seed: int):
+    """The randomness of a bulk build of `n` rows: SimHash projections
+    f32[m_bits, dim] and level uniforms in [1e-7, 1), in that order from
+    one CPU generator seeded with `seed`."""
+    rng = torch.Generator().manual_seed(seed)
+    proj = torch.randn((cfg.m_bits, cfg.dim), generator=rng)
+    u01 = 1e-7 + (1.0 - 1e-7) * torch.rand((n,), generator=rng)
+    return proj, u01
+
+
 def patch_snapshot(snap: torch.Tensor, overlay_rows: torch.Tensor,
                    overlay_valid: torch.Tensor) -> torch.Tensor:
     """The dense snapshot int32[cap, M] after an `insert_batch`: its
@@ -236,9 +246,7 @@ class LSMVecIndex:
               device=None) -> "LSMVecIndex":
         """Bulk-build an index over `vectors` [n, dim]."""
         dev = resolve(device)
-        rng = torch.Generator().manual_seed(seed)
-        proj = torch.randn((cfg.m_bits, cfg.dim), generator=rng)
-        u01 = 1e-7 + (1.0 - 1e-7) * torch.rand((len(vectors),), generator=rng)
+        proj, u01 = build_draws(cfg, len(vectors), seed)
         state = hnsw.bulk_build(cfg, vectors, proj.to(dev), u01, device=dev)
         return cls(cfg, seed=seed, state=state, device=dev)
 
@@ -682,7 +690,10 @@ class LSMVecIndex:
         leaf the config requires must be there with its exact shape, or
         the restore refuses: a checkpoint of another cap/dim/M never
         loads silently.  Returns (index, metadata, extras), extras being
-        the arrays passed to `save(extra=...)`, keys unprefixed.
+        the arrays passed to `save(extra=...)`, keys unprefixed.  A
+        checkpoint of the reference's index restores too (same layout,
+        SimHash words widened to int64); only its insert generator
+        differs, seeded from the reference's key.
         """
         dev = resolve(device)
         arrays, metadata, _ = ckpt.load_arrays(ckpt_dir, step)
@@ -706,7 +717,14 @@ class LSMVecIndex:
             leaves[k] = torch.from_numpy(np.array(arr)).to(dev, tmpl.dtype)
         state = lsm.hydrate(template, leaves, "state")
         idx = cls(cfg, seed=seed, state=state, device=dev)
-        idx._rng.set_state(torch.from_numpy(np.array(arrays["rng"])))
+        rng = np.array(arrays["rng"])
+        if rng.dtype == np.uint8:
+            idx._rng.set_state(torch.from_numpy(rng))
+        else:
+            # a reference checkpoint holds its key's words (uint32), whose
+            # stream no torch generator replays: they seed this one
+            idx._rng.manual_seed(int.from_bytes(
+                rng.astype("<u4").tobytes(), "little") % 2 ** 64)
         idx._count = int(metadata["count"])
         idx._version = int(metadata["version"])
         extras = {k[len("extra/"):]: v for k, v in arrays.items()

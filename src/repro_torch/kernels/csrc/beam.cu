@@ -164,7 +164,10 @@ __device__ __forceinline__ float hoeffding_threshold(float qn, float mn,
   const float num =
       __fsub_rn(__fadd_rn(__fmul_rn(qn, qn), __fmul_rn(mn, mn)), delta_sq);
   float c = __fdiv_rn(num, denom);
-  c = fminf(fmaxf(c, -1.0f), 1.0f);
+  // clamp to [-1, 1] keeping NaN, as torch.clamp does (fminf/fmaxf would
+  // turn it into -1): a table with a row of +inf has an infinite mean
+  // norm, a NaN cosine and a NaN threshold, which no count passes
+  c = c < -1.0f ? -1.0f : (c > 1.0f ? 1.0f : c);
   const float theta = __double2float_rn(acos(static_cast<double>(c)));
   const float pi = static_cast<float>(3.141592653589793);
   const float p = __fsub_rn(1.0f, __fdiv_rn(theta, pi));

@@ -1,5 +1,8 @@
 // l2_distance: dense squared L2 distances [Q, N] between query rows and
-// candidate rows, max(|q|^2 + |c|^2 - 2 q.c, 0) in f32.
+// candidate rows, max(|q|^2 + |c|^2 - 2 q.c, 0) in f32.  NaN stays NaN,
+// as in the plain version (`torch.clamp_min`, the reference's
+// `jnp.maximum`): a row of +inf gives inf - inf = NaN there, which the
+// sharded flat index maps to +inf (its padding rows).
 //
 // Replaces src/repro/kernels/l2_distance/kernel.py::l2_distance_pallas
 // (128x128 MXU tiles of the same decomposition).
@@ -322,7 +325,8 @@ l2_tile_kernel(const float* __restrict__ q, const float* __restrict__ c,
         const long long gc = col0 + tx + T::kTX * j;
         if (gc >= n_c) continue;
         const float v = qn[i] + cn[j] - 2.f * acc[i][j];
-        out[gr * n_c + gc] = fmaxf(v, 0.f);
+        // fmaxf would turn NaN into 0; every other value as before
+        out[gr * n_c + gc] = isnan(v) ? v : fmaxf(v, 0.f);
       }
     }
   }

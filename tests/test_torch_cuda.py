@@ -22,7 +22,10 @@ takes it to the beam megakernel.  The index's overlapped consolidation
 stream's consolidation does, bitwise, and its snapshot patches equal a
 fresh resolve.  The serving engine on the card answers a short stream as
 it does on the CPU, bitwise, and a guarded steady state with the sync
-sentinel's CUDA layer on raises nothing.
+sentinel's CUDA layer on raises nothing.  `l2_distance` and the beam
+megakernel keep NaN where their plain versions do (a row of +inf).  The
+sharded flat index (its padding rows), a two-shard backend and both
+baselines give on the card what they give on the CPU.
 """
 
 import numpy as np
@@ -135,6 +138,34 @@ def test_l2_distance_cuda_kernel_matches_plain(q_n, c_n, d):
         assert torch.equal(l2_distance(qq, cc), ref)
         cls = l2_shape_class(q_n)
         assert l2_distance.by_class[cls] == by_class.get(cls, 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [65, 128])
+@pytest.mark.parametrize("q_n", [7, 300])
+def test_l2_distance_cuda_kernel_keeps_nan_like_plain(q_n, d):
+    """Rows of +inf (the sharded flat index's padding) and of NaN, among
+    candidates and queries, on both tiles: NaN wherever the plain
+    version has NaN (inf - inf), and every other entry, the finite ones
+    bitwise, as the plain version gives it on integer-valued data."""
+    dev = _cuda()
+    rng = np.random.default_rng(q_n + d)
+    q = rng.integers(-8, 9, (q_n, d)).astype(np.float32)
+    c = rng.integers(-8, 9, (513, d)).astype(np.float32)
+    c[[3, 200, 512]] = np.inf
+    c[77] = np.nan
+    c[78, 5] = -np.inf
+    q[q_n - 1] = np.inf
+    q, c = torch.from_numpy(q).to(dev), torch.from_numpy(c).to(dev)
+    ref = l2_distance_ref(q, c)
+    for qq, cc in ((q, c), (q, _misaligned(c))):
+        out = l2_distance(qq, cc)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
+        torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(ref).any()) and bool(torch.isfinite(ref).any())
+    finite = l2_distance(q[:-1].contiguous(), c[:3].contiguous())
+    assert torch.equal(finite, l2_distance_ref(q[:-1], c[:3]))
 
 
 @pytest.mark.cuda
@@ -377,6 +408,36 @@ def test_beam_cuda_kernel_warp_layout(bq, d, n_expand, rho):
             for a, b in zip(off[:3], got[:3]):
                 assert torch.equal(a, b)
             assert bool((off[3] == -1).all()) and not bool(off[4].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [32, 128])
+def test_beam_cuda_kernel_keeps_a_nan_threshold_like_plain(dim):
+    """A table with a row of +inf: its mean norm is inf, the collision
+    threshold's cosine inf / inf = NaN, and the plain version's clamp
+    keeps NaN, so no neighbour passes the filter while the k-th distance
+    is finite.  The kernel must decide the same, bitwise."""
+    dev = _cuda()
+    w = _beam_world(dev, cap=3000, dim=dim, M=8, bq=200, floats=False,
+                    seed=dim)
+    qs, entries, entry_d, adj, vecs, codes, code_qs, live, qn, _ = w["args"]
+    vecs = vecs.clone()
+    vecs[1234] = torch.inf
+    mn = torch.sqrt((vecs * vecs).sum(1).double()).float().mean()
+    assert torch.isinf(mn)
+    args = [qs, entries, entry_d, adj, vecs, codes, code_qs, live, qn, mn]
+    for rho, use_filter in ((1.0, True), (0.5, True), (1.0, False)):
+        opt = {"returnable": w["opt"]["returnable"]}
+        kw = dict(ef=24, k=5, m_bits=64, eps=0.1, rho=rho, max_iters=48,
+                  use_filter=use_filter, n_expand=1)
+        got = fused_beam_search(*args, **opt, **kw)
+        plain = beam_search_ref(*args, **opt, **kw)
+        loop = _loop_route(args, opt, **kw)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("ids", "dists", "stats", "heat_nodes",
+                                  "heat_mask"), got, plain, loop):
+            assert torch.equal(a, b), (name, rho, use_filter)
+            assert torch.equal(a, c), (name, rho, use_filter)
 
 
 def _update_inputs(seed, cap=2000, d=128, M=16):
@@ -863,3 +924,143 @@ def test_guarded_steady_state_on_the_card():
                    "insert_batch host loop", "repair worker reads",
                    "stats surface fetch"):
         assert counts.get(reason, 0) > 0, (reason, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 3, 7, 8])
+def test_sharded_flat_card_equals_cpu_with_padding(p):
+    """The flat index's last shard padded with +inf rows (5,003 rows):
+    on the card the padded rows' distances are NaN, mapped to +inf, and
+    ids and dists equal the CPU's bitwise on integer-valued rows."""
+    from repro_torch.core.distributed import ShardedFlatIndex
+    dev = _cuda()
+    rng = np.random.default_rng(p)
+    data = rng.integers(-8, 9, (5003, 128)).astype(np.float32)
+    qs = rng.integers(-8, 9, (100, 128)).astype(np.float32)
+    before = l2_distance.launches
+    got = ShardedFlatIndex(p, devices=[dev]).build(data).search(qs, k=16)
+    assert l2_distance.launches == before + p
+    want = ShardedFlatIndex(p, devices=["cpu"]).build(data).search(qs, k=16)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[0].shape == (100, 10) and got[0].max() < len(data)
+
+
+def _state_equal(a, b):
+    from repro_torch.bridge import sharded_backend_to_numpy
+    sa, sb = sharded_backend_to_numpy(a), sharded_backend_to_numpy(b)
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sharded_backend_card_equals_cpu():
+    """Two shards on the card and on the CPU, from one seed over
+    integer-valued rows: build, searches on the loop and snapshot
+    routes, padded inserts, lazy deletes, an overlapped consolidation
+    (each shard's repair on its side stream), compaction and reordering:
+    every id, distance, perm and state field bitwise."""
+    from repro_torch.core.backend import SearchParams
+    from repro_torch.core.distributed import ShardedBackend
+    from repro_torch.core.hnsw import HNSWConfig
+    dev = _cuda()
+    cfg = HNSWConfig(cap=2048, dim=65)
+    rng = np.random.default_rng(5)
+    base = rng.integers(-4, 5, (1200, 65)).astype(np.float32)
+    xs = rng.integers(-4, 5, (128, 65)).astype(np.float32)
+    qs = rng.integers(-4, 5, (64, 65)).astype(np.float32)
+    bes = [ShardedBackend(cfg, 2, devices=[d]).build(base, seed=3)
+           for d in (dev, "cpu")]
+
+    def both(fn):
+        out = [fn(be) for be in bes]
+        torch.cuda.synchronize()
+        return out
+
+    def same_search():
+        for kw in (dict(), dict(use_snapshot=True, pad_to=64)):
+            a, b = both(lambda be: be.search(qs, 10,
+                                             params=SearchParams(**kw)))
+            np.testing.assert_array_equal(a.ids, b.ids)
+            np.testing.assert_array_equal(a.dists, b.dists)
+
+    same_search()
+    a, b = both(lambda be: be.insert_batch(xs, pad_to=64))
+    np.testing.assert_array_equal(a.ids, b.ids)
+    dels = bes[1].initial_ids()[::40]
+    both(lambda be: be.delete_batch(dels, pad_to=32))
+    same_search()
+    assert all(both(lambda be: be.begin_maintain("consolidate")))
+    same_search()
+    a, b = both(lambda be: be.poll_maintain(block=True))
+    assert a.reclaimed == b.reclaimed == len(dels)
+    _state_equal(*bes)
+    both(lambda be: be.maintain("compact"))
+    a, b = both(lambda be: be.maintain("reorder"))
+    np.testing.assert_array_equal(a.perm, b.perm)
+    _state_equal(*bes)
+    same_search()
+    assert bes[0].stats() == bes[1].stats()
+
+
+@pytest.mark.cuda
+def test_diskann_card_equals_cpu():
+    """The build's distance blocks through the kernel: the graph, the
+    searches and the inserts equal the CPU's, integer-valued rows."""
+    from repro_torch.core.baselines import DiskANNIndex
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    base = rng.integers(-4, 5, (2500, 128)).astype(np.float32)
+    qs = rng.integers(-4, 5, (40, 128)).astype(np.float32)
+    before = l2_distance.launches
+    idx = [DiskANNIndex.build(base, M=12, ef=48, seed=2, device=d)
+           for d in (dev, "cpu")]
+    assert l2_distance.launches == before + 3     # blocks of 1,024
+    assert idx[0].entry == idx[1].entry
+    for a, b in zip(idx[0].adj, idx[1].adj):
+        np.testing.assert_array_equal(a, b)
+    for x in qs[:10]:
+        assert idx[0].insert(x) == idx[1].insert(x)
+    for a, b in zip(idx[0].search(qs), idx[1].search(qs)):
+        np.testing.assert_array_equal(a, b)
+    assert [int(v) for v in idx[0].io_stats] \
+        == [int(v) for v in idx[1].io_stats]
+
+
+@pytest.mark.cuda
+def test_spfresh_card_equals_cpu():
+    """k-means assignments and probes through the kernel: postings and
+    search ids equal the CPU's, except where a row's two nearest
+    centroids (a query's last probed and first unprobed) lie within
+    1e-5 relative of each other (the count is printed)."""
+    from repro_torch.core.baselines import SPFreshIndex
+    from repro_torch.data.synth import make_clustered_vectors
+    dev = _cuda()
+    data = make_clustered_vectors(8192, 128, seed=4)
+    qs = make_clustered_vectors(100, 128, seed=8)
+    idx = [SPFreshIndex.build(data[:8000], posting_cap=64, n_probe=3,
+                              seed=1, device=d) for d in (dev, "cpu")]
+
+    def near_tie(d, rank):
+        s = np.sort(d)
+        return s[rank + 1] - s[rank] <= 1e-5 * s[rank + 1]
+
+    def owners(ix):
+        own = np.full(len(ix.vectors), -1)
+        for c, p in enumerate(ix.postings):
+            own[np.asarray(p, np.int64)] = c
+        return own
+    for x in data[8000:]:
+        assert idx[0].insert(x) == idx[1].insert(x)
+    apart = np.flatnonzero(owners(idx[0]) != owners(idx[1]))
+    for r in apart:
+        assert near_tie(((idx[1].centroids - data[r]) ** 2).sum(1), 0)
+    (ia, da), (ib, db) = idx[0].search(qs), idx[1].search(qs)
+    rows = np.flatnonzero((ia != ib).any(1))
+    for i in rows:
+        assert near_tie(((idx[1].centroids - qs[i]) ** 2).sum(1), 2)
+    print(f"SPFresh card vs CPU rows apart: postings {len(apart)}, "
+          f"search {len(rows)}")
+    same = np.setdiff1d(np.arange(len(qs)), rows)
+    np.testing.assert_array_equal(da[same], db[same])
